@@ -1,153 +1,135 @@
-// K1: the BatchNorm-folded closure CNN, layers Conv_1..Conv_n, in float32.
+// K1: the BatchNorm-folded closure CNN, layers Conv_1..Conv_n, in float32
+// (k1_fused_cnn_forward_f32) and with bf16 matmul inputs
+// (k1_fused_cnn_forward_bf16).
 //
 // Replaces pyqg_generative_tpu/ml/pallas_conv.py::_fused_call (body
-// _make_kernel, variant "dx" = _conv_dx), the Pallas kernel of the online
-// closure step. Per member it runs a chain of circular "same" convolutions,
-// bias on every layer, ReLU on all but the last, with float32 accumulation:
-// in (B, H, W, Cin0) NHWC, out (B, H, W, Cout_last) NHWC, kernels HWIO (the
-// flax layout) packed back to back in one buffer, biases likewise.
+// _make_kernel), the Pallas kernel of the online closure step, in all its
+// per-member variants: "dx" (_conv_dx), "tap" (_conv_out), "dxf" (_conv_dxf)
+// and "dxb" (_conv_dxb) compute one function and differ only in how a TPU
+// rolls its vectors. Per member it runs a chain of circular "same"
+// convolutions, bias on every layer, ReLU on all but the last, with float32
+// accumulation: in (B, H, W, Cin0) float32 NHWC, out (B, H, W, Cout_last)
+// float32 NHWC, kernels HWIO packed back to back in one buffer (float32 or
+// bf16), biases float32.
 //
-// Bound on an H100 at the main path's shapes (10 members, 64^2, eddy_gan_64):
-// 2.136 GFLOP per member-step (Conv_1 alone 1.678), 21.4 GFLOP a call, which
-// at the 67 TFLOP/s float32 peak outside the tensor cores is 0.32 ms; the
-// bytes (22 MB: the 128-channel input, the weights and the output) take
-// 7 us at 3.35 TB/s. So the kernel is bound by operations.
+// Bound on an H100 (the FLOP counts follow from the weight shapes):
+// - float32, eddy_gan_64 widths at 10 x 64^2: 21.4 GFLOP a call, 0.32 ms at
+//   the 67 TFLOP/s float32 peak outside the tensor cores; the 22 MB it must
+//   move take 7 us at 3.35 TB/s, so it is bound by operations;
+// - bf16, the merged GZ mean/variance pair (256/128/64 channels) at
+//   10 x 64^2: 85.4 GFLOP a call (half of it on the zero blocks of the
+//   block-diagonal weights), 0.086 ms at 989 TFLOP/s dense bf16; the 44 MB
+//   it moves take 13 us, so again operations bind it.
 //
 // Design, simple and exact first: one direct circular-convolution kernel
-// launched per layer, bias and ReLU fused, intermediates in a scratch buffer
-// (one 10x64^2x64 float32 activation is 10 MB and stays in the 50 MB L2).
-// A block computes a 16x16 tile of output pixels (one thread each) for up to
-// 32 output channels; it stages 8 input channels of the tile plus its halo,
-// and their weights, in shared memory per pass. The TPU design (the whole
-// chain resident in 100 MB of VMEM) has no counterpart in 227 KB of shared
-// memory. Whole-chain fusion with an 8-cell halo (2 from the 5x5 layer, 6 from
-// the 3x3 layers), implicit GEMM on the tensor cores and bf16 are later work.
+// launched per layer (the tile body in conv_tile.cuh), bias and ReLU fused,
+// intermediates in a scratch buffer (one 10x64^2x128 activation is 21 MB in
+// float32, 10 MB in bf16, and stays in the 50 MB L2). In bf16 the kernel
+// stages bf16 in shared memory and stores bf16 intermediates, which halves
+// the scratch bytes, but still multiplies on the float32 FMA units. The TPU
+// design (the whole chain resident in 100 MB of VMEM) has no counterpart in
+// 227 KB of shared memory. Whole-chain fusion with an 8-cell halo, implicit
+// GEMM on the tensor cores (wgmma at bf16) and skipping the merged pair's
+// zero blocks are later work.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "conv_tile.cuh"
 
 namespace {
 
-constexpr int TILE = 16;  // output tile edge; one thread per pixel
-constexpr int CC = 8;     // input channels staged per pass
+using pqg::TILE;
+using bf16 = __nv_bfloat16;
 
-template <int K, int CO_BLK>
+template <int K, int CO_BLK, typename Tin, typename Tc, typename Tout>
 __global__ void __launch_bounds__(TILE * TILE)
-conv_circular_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, float* __restrict__ y,
+conv_circular_kernel(const Tin* __restrict__ x, const Tc* __restrict__ w,
+                     const float* __restrict__ bias, Tout* __restrict__ y,
                      int H, int W, int cin, int cout, int relu) {
-  constexpr int R = K / 2;
-  constexpr int S = TILE + K - 1;  // staged edge: tile plus halo
-  constexpr int NT = TILE * TILE;
-  __shared__ float s_in[CC][S][S];
-  __shared__ __align__(16) float s_w[K * K][CC][CO_BLK];
-
-  const int tiles_x = (W + TILE - 1) / TILE;
-  const int ty0 = (blockIdx.x / tiles_x) * TILE;
-  const int tx0 = (blockIdx.x % tiles_x) * TILE;
-  const int co0 = blockIdx.y * CO_BLK;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid / TILE, tx = tid % TILE;
-  const float* xb = x + (size_t)b * H * W * cin;
-
-  float acc[CO_BLK];
-#pragma unroll
-  for (int o = 0; o < CO_BLK; ++o) acc[o] = 0.f;
-
-  for (int c0 = 0; c0 < cin; c0 += CC) {
-    __syncthreads();  // the previous pass has finished reading
-    for (int i = tid; i < S * S * CC; i += NT) {
-      const int c = i % CC, pix = i / CC;
-      const int sy = pix / S, sx = pix % S;
-      const int gy = ((ty0 + sy - R) % H + H) % H;
-      const int gx = ((tx0 + sx - R) % W + W) % W;
-      const int ch = c0 + c;
-      s_in[c][sy][sx] =
-          ch < cin ? xb[((size_t)gy * W + gx) * cin + ch] : 0.f;
-    }
-    for (int i = tid; i < K * K * CC * CO_BLK; i += NT) {
-      const int o = i % CO_BLK, c = (i / CO_BLK) % CC, tap = i / (CO_BLK * CC);
-      const int ch = c0 + c, co = co0 + o;
-      s_w[tap][c][o] = (ch < cin && co < cout)
-                           ? w[((size_t)tap * cin + ch) * cout + co]
-                           : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int c = 0; c < CC; ++c) {
-#pragma unroll
-      for (int ky = 0; ky < K; ++ky) {
-#pragma unroll
-        for (int kx = 0; kx < K; ++kx) {
-          const float v = s_in[c][ty + ky][tx + kx];
-          const float* wp = s_w[ky * K + kx][c];
-#pragma unroll
-          for (int o = 0; o < CO_BLK; ++o) acc[o] = fmaf(v, wp[o], acc[o]);
-        }
-      }
-    }
-  }
-
-  const int oy = ty0 + ty, ox = tx0 + tx;
-  if (oy < H && ox < W) {
-    float* yp = y + (((size_t)b * H + oy) * W + ox) * cout;
-#pragma unroll
-    for (int o = 0; o < CO_BLK; ++o) {
-      const int co = co0 + o;
-      if (co < cout) {
-        float r = acc[o] + bias[co];
-        yp[co] = relu ? fmaxf(r, 0.f) : r;
-      }
-    }
-  }
+  __shared__ pqg::TileSmem<K, CO_BLK, Tc> sm;
+  pqg::conv_tile<K, CO_BLK>(x, w, bias, y, gridDim.z, H, W, cin, cout,
+                            relu != 0, false, blockIdx.z, blockIdx.x,
+                            blockIdx.y * CO_BLK, sm);
 }
 
-template <int K, int CO_BLK>
-void launch(const float* x, const float* w, const float* b, float* y, int B,
-            int H, int W, int cin, int cout, int relu, cudaStream_t s) {
+template <int K, int CO_BLK, typename Tin, typename Tc, typename Tout>
+void launch(const Tin* x, const Tc* w, const float* b, Tout* y, int B, int H,
+            int W, int cin, int cout, int relu, cudaStream_t s) {
   const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
   const dim3 grid(tiles, (cout + CO_BLK - 1) / CO_BLK, B);
-  conv_circular_kernel<K, CO_BLK>
+  conv_circular_kernel<K, CO_BLK, Tin, Tc, Tout>
       <<<grid, TILE * TILE, 0, s>>>(x, w, b, y, H, W, cin, cout, relu);
 }
 
-int conv_layer(int K, const float* x, const float* w, const float* b,
-               float* y, int B, int H, int W, int cin, int cout, int relu,
+template <typename Tin, typename Tc, typename Tout>
+int conv_layer(int K, const Tin* x, const Tc* w, const float* b, Tout* y,
+               int B, int H, int W, int cin, int cout, int relu,
                cudaStream_t s) {
-  if (K == 5 && cout > 4) launch<5, 32>(x, w, b, y, B, H, W, cin, cout, relu, s);
+  const bool wide = pqg::co_block(cout) == 32;
+  if (K == 5 && wide) launch<5, 32>(x, w, b, y, B, H, W, cin, cout, relu, s);
   else if (K == 5) launch<5, 4>(x, w, b, y, B, H, W, cin, cout, relu, s);
-  else if (K == 3 && cout > 4) launch<3, 32>(x, w, b, y, B, H, W, cin, cout, relu, s);
+  else if (K == 3 && wide) launch<3, 32>(x, w, b, y, B, H, W, cin, cout, relu, s);
   else if (K == 3) launch<3, 4>(x, w, b, y, B, H, W, cin, cout, relu, s);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
+// The chain: layer i reads the float32 input (i = 0) or the scratch half
+// written by layer i-1, and writes the other half, or `out` (float32) for
+// the last layer.
+template <typename Tc>
+int run_chain(const float* x, const Tc* wflat, const float* bflat,
+              const int* meta, int n_layers, float* out, Tc* scratch, int B,
+              int H, int W, cudaStream_t s) {
+  size_t half = 0;
+  for (int i = 0; i + 1 < n_layers; ++i)
+    if ((size_t)meta[3 * i + 2] > half) half = meta[3 * i + 2];
+  half *= (size_t)B * H * W;
+  const Tc* src = nullptr;
+  size_t woff = 0, boff = 0;
+  for (int i = 0; i < n_layers; ++i) {
+    const int K = meta[3 * i], cin = meta[3 * i + 1], cout = meta[3 * i + 2];
+    const bool first = i == 0, last = i + 1 == n_layers;
+    const Tc* w = wflat + woff;
+    const float* b = bflat + boff;
+    Tc* mid = scratch + (i % 2) * half;
+    int err;
+    if (first && last)
+      err = conv_layer(K, x, w, b, out, B, H, W, cin, cout, 0, s);
+    else if (first)
+      err = conv_layer(K, x, w, b, mid, B, H, W, cin, cout, 1, s);
+    else if (last)
+      err = conv_layer(K, src, w, b, out, B, H, W, cin, cout, 0, s);
+    else
+      err = conv_layer(K, src, w, b, mid, B, H, W, cin, cout, 1, s);
+    if (err != 0) return err;
+    woff += (size_t)K * K * cin * cout;
+    boff += cout;
+    src = mid;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Runs the chain on `stream`. meta holds (K, cin, cout) per layer, on the
-// host. scratch holds two activations of B*H*W*max(hidden cout) floats. The
-// wrapper checks shapes; returns cudaGetLastError() of the launches (0 = ok).
+// Both entry points run the chain on `stream`. meta holds (K, cin, cout) per
+// layer, on the host. scratch holds two activations of B*H*W*max(hidden
+// cout) elements of the weights' type. The wrapper checks shapes; each
+// returns cudaGetLastError() of the launches (0 = ok).
 extern "C" int k1_fused_cnn_forward_f32(const float* x, const float* wflat,
                                         const float* bflat, const int* meta,
                                         int n_layers, float* out,
                                         float* scratch, int B, int H, int W,
                                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  size_t half = 0;
-  for (int i = 0; i + 1 < n_layers; ++i)
-    if ((size_t)meta[3 * i + 2] > half) half = meta[3 * i + 2];
-  half *= (size_t)B * H * W;
-  const float* src = x;
-  size_t woff = 0, boff = 0;
-  for (int i = 0; i < n_layers; ++i) {
-    const int K = meta[3 * i], cin = meta[3 * i + 1], cout = meta[3 * i + 2];
-    const bool last = i + 1 == n_layers;
-    float* dst = last ? out : scratch + (i % 2) * half;
-    const int err = conv_layer(K, src, wflat + woff, bflat + boff, dst, B, H,
-                               W, cin, cout, last ? 0 : 1, s);
-    if (err != 0) return err;
-    woff += (size_t)K * K * cin * cout;
-    boff += cout;
-    src = dst;
-  }
-  return (int)cudaGetLastError();
+  return run_chain(x, wflat, bflat, meta, n_layers, out, scratch, B, H, W,
+                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int k1_fused_cnn_forward_bf16(const float* x, const bf16* wflat,
+                                         const float* bflat, const int* meta,
+                                         int n_layers, float* out,
+                                         bf16* scratch, int B, int H, int W,
+                                         void* stream) {
+  return run_chain(x, wflat, bflat, meta, n_layers, out, scratch, B, H, W,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -3,9 +3,10 @@ use, and load it with `ctypes`.
 
 The library gets a plain C interface (no PyTorch headers), so a build takes
 seconds. It lands in the package's git-ignored `build/` directory, named by a
-hash of the source and the flags; `nvcc -Xptxas -v`'s report of registers,
-shared memory and spills is kept beside it as `<library>.log`. Nothing here
-runs at import.
+hash of the source, the shared headers (`csrc/*.cuh`) and the flags;
+`nvcc -Xptxas -v`'s report of registers, shared memory and spills is kept
+beside it as `<library>.log`. `build_libraries` starts one `nvcc` for each
+missing library, all together. Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "library_path", "nvcc_path"]
+__all__ = ["build_libraries", "load_library", "library_path", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -39,26 +40,49 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_libraries(names) -> None:
+    """Compile the libraries of `names` that the build directory lacks, one
+    `nvcc` each, all started together; raise if any build fails."""
+    jobs = []
+    for name in names:
+        lib_path = library_path(name)
+        if lib_path.exists():
+            continue
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, lib_path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    try:
+        for name, lib_path, tmp, proc in jobs:
+            log, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name}.cu:\n{log}")
+                continue
+            lib_path.with_suffix(".log").write_text(log)
+            os.replace(tmp, lib_path)
+    finally:
+        for *_, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library built from `csrc/<name>.cu`, compiled on the first
     call of the process if the build directory does not hold it yet."""
-    if name in _LOADED:
-        return _LOADED[name]
-    lib_path = library_path(name)
-    if not lib_path.exists():
-        BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{res.stderr}")
-        lib_path.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    _LOADED[name] = lib
-    return lib
+    if name not in _LOADED:
+        build_libraries([name])
+        _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+    return _LOADED[name]

@@ -1,26 +1,35 @@
-"""The online closure CNN: Conv_0 in PyTorch, Conv_1..Conv_n in kernel K1.
+"""The online closure CNN: Conv_0 in PyTorch, Conv_1..Conv_n in a kernel.
 
-K1 (`csrc/fused_conv.cu`) replaces the Pallas kernel
-`pyqg_generative_tpu/ml/pallas_conv.py::_fused_call` in its variant "dx"
-(`_conv_dx`): the BatchNorm-folded AndrewCNN after its first layer, as a
-chain of circular "same" convolutions with bias on every layer and ReLU on all
-but the last, in float32. The first layer (4 -> 128 channels, about 5% of the
-FLOPs) stays outside the kernel, as in `make_online_cnn.first_layer` of the
-twin.
+Twin of `pyqg_generative_tpu/ml/pallas_conv.py`. Three hand-written CUDA
+kernels replace its Pallas kernels; each has a plain PyTorch version here,
+which a wrapper takes only for a tensor on the CPU (for a CUDA tensor it
+launches its kernel or raises), and a launch count:
 
-Bound on an H100 at the main path's shapes (10 members, 64^2, eddy_gan_64
-widths): 2.136 GFLOP per member-step, 21.4 GFLOP a call, 0.32 ms at the
-67 TFLOP/s float32 peak outside the tensor cores; the 22 MB it must move take
-7 us at 3.35 TB/s, so K1 is bound by operations. The kernel's design and what
-later work changes are in the source's header.
+* K1 (`csrc/fused_conv.cu`) replaces `_fused_call` in its per-member
+  variants "dx", "tap", "dxf" and "dxb": the BatchNorm-folded AndrewCNN after
+  its first layer, as a chain of circular "same" convolutions with bias on
+  every layer and ReLU on all but the last. It runs in float32 or, with
+  `compute_dtype=torch.bfloat16`, on bf16 inputs and weights with float32
+  accumulation, bias, ReLU and output, as the twin does. Wrapper
+  `fused_cnn_forward`; counts `launches` (float32) and `launches_bf16`.
+* K2 (`csrc/packed_chain.cu`) replaces `_fused_call_packed`, the variant
+  "packed": the same chain for the whole batch in one launch, on the twin's
+  member-packed (H*W, B*C) layout. Wrapper `packed_cnn_forward`; counts
+  `launches_packed`.
+* K3 (`csrc/bitcast_probe.cu`) replaces `_bitcast_packing`, the probe of how
+  bf16 pairs pack into 32-bit words that resolves "dxb". Wrapper
+  `bitcast_pack_words`; counts `launches_probe`. On Hopper "dxb" and its
+  fallback "dxf" are the same kernel, so the probe names the variant and
+  changes no arithmetic.
 
-`fused_cnn_forward` takes K1's plain PyTorch version only for a tensor on the
-CPU; for a CUDA tensor it launches the kernel or raises. `launches` counts
-its kernel calls.
+The first layer (4 -> 128 channels, about 5% of the FLOPs) stays outside the
+kernels in float32 (cuDNN, TF32 off), as `make_online_cnn.first_layer` of the
+twin. The kernels' bounds and designs are in their sources' headers.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -31,34 +40,59 @@ import torch.nn.functional as F
 from ..device import exact_fp32, resolve_device
 from .nets import circular_conv2d
 
-__all__ = ["PackedCNN", "pack_folded_params", "fused_cnn_forward",
-           "fused_cnn_forward_plain", "make_online_cnn", "launches",
-           "flops_per_member"]
+__all__ = ["PackedCNN", "pack_folded_params", "merge_folded_pair",
+           "fused_cnn_forward", "fused_cnn_forward_plain",
+           "packed_cnn_forward", "packed_cnn_forward_plain",
+           "bitcast_pack_words", "bitcast_pack_words_plain",
+           "bitcast_packing", "resolve_variant", "compute_dtype_of",
+           "make_online_cnn", "flops_per_member", "launches",
+           "launches_bf16", "launches_packed", "launches_probe"]
 
-# K1 calls made by fused_cnn_forward on CUDA tensors (each call enqueues the
-# whole Conv_1..Conv_n chain).
-launches = 0
+# Kernel calls made by the wrappers on CUDA tensors (a K1 call enqueues the
+# whole Conv_1..Conv_n chain, one launch per layer; a K2 call is one launch).
+launches = 0          # K1, float32
+launches_bf16 = 0     # K1, bf16
+launches_packed = 0   # K2
+launches_probe = 0    # K3
 
-# Names of the twin's kernel variants; on Hopper "dx" and "tap" are one
-# float32 kernel. The bf16 variants and the member-packed one are later work.
-_VARIANTS = ("dx", "tap")
+# The twin's variant names and the kernel each maps to on Hopper. A name
+# ending in "pair" is resolved by the GZ model (`MeanVarModel`).
+VARIANTS = {"dx": "k1", "tap": "k1", "dxf": "k1", "dxb": "k1",
+            "packed": "k2"}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(name: str) -> torch.dtype:
+    """The compute dtype of a model's `inference_dtype` argument."""
+    if name not in _DTYPES:
+        raise ValueError(f"inference_dtype {name!r}: one of {list(_DTYPES)}")
+    return _DTYPES[name]
 
 
 @dataclass(frozen=True)
 class PackedCNN:
     """BN-folded conv chain on one device: per layer an OIHW kernel and a
-    bias for the plain version, and the same weights as HWIO packed back to
-    back (`wflat`, `bflat`) for K1. meta = ((K, cin, cout), ...)."""
+    bias for the plain versions (the kernel rounded to bf16 where `dtype` is
+    bf16, held as float32), and the same weights as HWIO packed back to back
+    in `dtype` (`wflat`) with float32 biases (`bflat`) for the kernels.
+    meta = ((K, cin, cout), ...)."""
     weights: tuple
     biases: tuple
     wflat: torch.Tensor
     bflat: torch.Tensor
     meta: tuple
+    dtype: torch.dtype = torch.float32
 
 
-def pack_folded_params(folded: dict, device) -> PackedCNN:
+def pack_folded_params(folded: dict, device,
+                       compute_dtype: torch.dtype = torch.float32
+                       ) -> PackedCNN:
     """Pack BN-folded AndrewCNN params ({'params': {'Conv_i': {kernel
-    (K,K,Cin,Cout), bias}}}, flax layout) for the plain version and K1."""
+    (K,K,Cin,Cout), bias}}}, flax layout) for the plain versions and the
+    kernels; weights in `compute_dtype`, biases in float32."""
+    if compute_dtype not in _DTYPES.values():
+        raise TypeError(f"compute dtype {compute_dtype}: float32 or bfloat16")
     params = folded["params"]
     n = len([k for k in params if k.startswith("Conv_")])
     weights, biases, hwio, meta = [], [], [], []
@@ -70,8 +104,9 @@ def pack_folded_params(folded: dict, device) -> PackedCNN:
         if K != K2 or K % 2 == 0:
             raise ValueError("square kernels of odd size only")
         hwio.append(k.ravel())
-        weights.append(torch.as_tensor(
-            np.ascontiguousarray(k.transpose(3, 2, 0, 1)), device=device))
+        w = torch.as_tensor(np.ascontiguousarray(k.transpose(3, 2, 0, 1)),
+                            device=device)
+        weights.append(w.to(compute_dtype).to(torch.float32))
         biases.append(torch.as_tensor(b, device=device))
         meta.append((K, cin, cout))
     for (_, _, cout), (_, cin, _) in zip(meta[:-1], meta[1:]):
@@ -79,8 +114,41 @@ def pack_folded_params(folded: dict, device) -> PackedCNN:
             raise ValueError("layer widths do not chain")
     return PackedCNN(
         weights=tuple(weights), biases=tuple(biases),
-        wflat=torch.as_tensor(np.concatenate(hwio), device=device),
-        bflat=torch.cat(biases), meta=tuple(meta))
+        wflat=torch.as_tensor(np.concatenate(hwio), device=device).to(
+            compute_dtype),
+        bflat=torch.cat(biases), meta=tuple(meta), dtype=compute_dtype)
+
+
+def merge_folded_pair(folded_a: dict, folded_b: dict) -> dict:
+    """Merge two BN-folded CNNs of the same structure into ONE network that
+    is block-diagonal over channels (the twin's numpy code), so that one
+    kernel call runs GZ's mean and variance nets. Layer 0 reads the shared
+    input: kernels concatenated along cout. Layers 1..n: block-diagonal over
+    (cin, cout). Outputs concatenate [out_a | out_b]."""
+    pa, pb = folded_a["params"], folded_b["params"]
+    n = len([k for k in pa if k.startswith("Conv_")])
+    if n != len([k for k in pb if k.startswith("Conv_")]):
+        raise ValueError("pair nets must have the same depth")
+    out = {}
+    for i in range(n):
+        ka = np.asarray(pa[f"Conv_{i}"]["kernel"])
+        kb = np.asarray(pb[f"Conv_{i}"]["kernel"])
+        ba = np.asarray(pa[f"Conv_{i}"].get("bias", np.zeros(ka.shape[-1])))
+        bb = np.asarray(pb[f"Conv_{i}"].get("bias", np.zeros(kb.shape[-1])))
+        if ka.shape[:2] != kb.shape[:2]:
+            raise ValueError("pair nets must share K")
+        K, _, cina, couta = ka.shape
+        cinb, coutb = kb.shape[2], kb.shape[3]
+        if i == 0:
+            if cina != cinb:
+                raise ValueError("pair nets must share the input")
+            k = np.concatenate([ka, kb], axis=3)
+        else:
+            k = np.zeros((K, K, cina + cinb, couta + coutb), ka.dtype)
+            k[:, :, :cina, :couta] = ka
+            k[:, :, cina:, couta:] = kb
+        out[f"Conv_{i}"] = {"kernel": k, "bias": np.concatenate([ba, bb])}
+    return {"params": out}
 
 
 def flops_per_member(meta, H: int, W: int) -> float:
@@ -89,39 +157,59 @@ def flops_per_member(meta, H: int, W: int) -> float:
     return float(sum(2 * K * K * cin * cout for K, cin, cout in meta) * H * W)
 
 
+def _round(act: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The twin's cast at a conv's input, held in float32."""
+    return act if dtype == torch.float32 else act.to(dtype).to(torch.float32)
+
+
+# ------------------------------------------------------------------ K1
 def fused_cnn_forward_plain(x: torch.Tensor,
                             packed: PackedCNN) -> torch.Tensor:
     """K1's function in plain PyTorch: x (B, H, W, Cin0) -> (B, H, W,
-    Cout), float32, TF32 off."""
+    Cout), float32 convolutions with TF32 off, on inputs rounded to the
+    compute dtype at each conv."""
     act = x.permute(0, 3, 1, 2)
     n = len(packed.weights)
     with exact_fp32():
         for i, (w, b) in enumerate(zip(packed.weights, packed.biases)):
-            act = circular_conv2d(act, w, b)
+            act = circular_conv2d(_round(act, packed.dtype), w, b)
             if i < n - 1:
                 act = F.relu(act)
     return act.permute(0, 2, 3, 1).contiguous()
 
 
-@lru_cache(maxsize=None)
-def _k1_function():
-    """K1's C entry point, built and loaded at its first launch."""
+def _bind(library: str, symbol: str, argtypes):
     from ._build import load_library
-    fn = load_library("fused_conv").k1_fused_cnn_forward_f32
+    fn = getattr(load_library(library), symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = argtypes
     return fn
 
 
-def _k1(x: torch.Tensor, packed: PackedCNN) -> torch.Tensor:
-    global launches
-    fn = _k1_function()
-    B, H, W, _ = x.shape
-    n_out = packed.meta[-1][2]
+# x, wflat, bflat, meta, n_layers, out, scratch, B, H, W, stream
+_CHAIN_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+@lru_cache(maxsize=None)
+def _chain_function(library: str, dtype: torch.dtype):
+    """The C entry point of K1 or K2 for `dtype`, built and loaded at its
+    first launch."""
+    prefix = {"fused_conv": "k1_fused", "packed_chain": "k2_packed"}[library]
+    suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    return _bind(library, f"{prefix}_cnn_forward_{suffix}", _CHAIN_ARGS)
+
+
+def _launch_chain(library: str, x: torch.Tensor, packed: PackedCNN,
+                  out_shape, B: int, H: int, W: int) -> torch.Tensor:
+    """Allocate the output and the ping-pong scratch, and launch the chain
+    kernel of `library` on the current stream; raise if it is refused."""
+    if packed.wflat.device != x.device:
+        raise ValueError("weights and input lie on different devices")
+    fn = _chain_function(library, packed.dtype)
     hidden = max((cout for _, _, cout in packed.meta[:-1]), default=0)
-    out = torch.empty((B, H, W, n_out), dtype=torch.float32, device=x.device)
-    scratch = torch.empty(2 * B * H * W * hidden, dtype=torch.float32,
+    out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(2 * B * H * W * hidden, dtype=packed.dtype,
                           device=x.device)
     flat = [v for m in packed.meta for v in m]
     meta = (ctypes.c_int * len(flat))(*flat)
@@ -130,40 +218,178 @@ def _k1(x: torch.Tensor, packed: PackedCNN) -> torch.Tensor:
              meta, len(packed.meta), out.data_ptr(), scratch.data_ptr(),
              B, H, W, stream)
     if err != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {err}")
-    launches += 1
+        raise RuntimeError(f"{library} launch failed: cudaError {err}")
     return out
 
 
+def _check_input(x: torch.Tensor, name: str):
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 input, got {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} for device {x.device}")
+
+
 def fused_cnn_forward(x: torch.Tensor, packed: PackedCNN) -> torch.Tensor:
-    """The Conv_1..Conv_n chain on x (B, H, W, Cin0) float32 NHWC. A CPU
-    tensor takes the plain version; a CUDA tensor launches K1."""
+    """The Conv_1..Conv_n chain on x (B, H, W, Cin0) float32 NHWC, in
+    `packed.dtype`. A CPU tensor takes the plain version; a CUDA tensor
+    launches K1."""
+    global launches, launches_bf16
     if x.ndim != 4 or x.shape[-1] != packed.meta[0][1]:
         raise ValueError(f"expected (B, H, W, {packed.meta[0][1]}), "
                          f"got {tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"K1 takes float32, got {x.dtype}")
+    _check_input(x, "K1")
     if x.device.type == "cpu":
         return fused_cnn_forward_plain(x, packed)
+    B, H, W, _ = x.shape
+    out = _launch_chain("fused_conv", x.contiguous(), packed,
+                        (B, H, W, packed.meta[-1][2]), B, H, W)
+    if packed.dtype == torch.float32:
+        launches += 1
+    else:
+        launches_bf16 += 1
+    return out
+
+
+# ------------------------------------------------------------------ K2
+def _packed_grid(x: torch.Tensor, packed: PackedCNN):
+    """(B, H, W) of a member-packed (H*W, B*Cin0) input; square grids only,
+    as the twin's `_fused_call_packed`."""
+    cin = packed.meta[0][1]
+    if x.ndim != 2 or x.shape[1] % cin:
+        raise ValueError(f"expected (H*W, B*{cin}), got {tuple(x.shape)}")
+    H = math.isqrt(x.shape[0])
+    if H * H != x.shape[0]:
+        raise ValueError("square grids only")
+    return x.shape[1] // cin, H, H
+
+
+def packed_cnn_forward_plain(x: torch.Tensor,
+                             packed: PackedCNN) -> torch.Tensor:
+    """K2's function in plain PyTorch, formulated as the twin's packed
+    kernel: per layer, per tap s = (dy, dx), one matmul of the rounded
+    activation with the tap's (cin, cout) slice of the tap-major weights,
+    accumulated circularly shifted, acc[h, w] += y_s[h + dy, w + dx] (one
+    `torch.roll`); then bias, and ReLU on all but the last layer. x
+    (H*W, B*Cin0) -> (H*W, B*Cout), float32 with TF32 off."""
+    B, H, W = _packed_grid(x, packed)
+    act = x.reshape(H, W, B, packed.meta[0][1])
+    n = len(packed.meta)
+    with exact_fp32():
+        for i, ((K, cin, cout), w, b) in enumerate(
+                zip(packed.meta, packed.weights, packed.biases)):
+            taps = w.permute(2, 3, 1, 0).reshape(K * K, cin, cout)
+            a = _round(act, packed.dtype)
+            c = K // 2
+            acc = torch.zeros((H, W, B, cout), dtype=torch.float32,
+                              device=x.device)
+            for s in range(K * K):
+                dy, dx = s // K - c, s % K - c
+                acc += torch.roll(a @ taps[s], shifts=(-dy, -dx),
+                                  dims=(0, 1))
+            act = acc + b
+            if i < n - 1:
+                act = F.relu(act)
+    return act.reshape(H * W, B * packed.meta[-1][2])
+
+
+def packed_cnn_forward(x: torch.Tensor, packed: PackedCNN) -> torch.Tensor:
+    """The Conv_1..Conv_n chain on the member-packed x (H*W, B*Cin0)
+    float32, in `packed.dtype`, giving (H*W, B*Cout). A CPU tensor takes
+    the plain version; a CUDA tensor launches K2, one launch for all
+    members."""
+    global launches_packed
+    _check_input(x, "K2")
+    B, H, W = _packed_grid(x, packed)
+    if x.device.type == "cpu":
+        return packed_cnn_forward_plain(x, packed)
+    out = _launch_chain("packed_chain", x.contiguous(), packed,
+                        (H * W, B * packed.meta[-1][2]), B, H, W)
+    launches_packed += 1
+    return out
+
+
+# ------------------------------------------------------------------ K3
+def bitcast_pack_words_plain(x: torch.Tensor) -> torch.Tensor:
+    """K3's function in plain PyTorch: x (2R, C) bf16 -> (R, C) int64 words
+    in [0, 2^32), word i = bits of row 2i in the low 16 bits and of row
+    2i+1 in the high 16 bits, from integer ops on the bf16 bit patterns."""
+    bits = x.view(torch.int16).to(torch.int64) & 0xFFFF
+    return bits[0::2] | (bits[1::2] << 16)
+
+
+@lru_cache(maxsize=None)
+def _k3_function():
+    return _bind("bitcast_probe", "k3_pack_bf16_pairs",
+                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 +
+                 [ctypes.c_void_p])
+
+
+def bitcast_pack_words(x: torch.Tensor) -> torch.Tensor:
+    """The 32-bit words the device builds from row pairs (2i, 2i+1) of a
+    (2R, C) bf16 tensor, as int64 in [0, 2^32). A CPU tensor takes the plain
+    version; a CUDA tensor launches K3."""
+    global launches_probe
+    if x.dtype != torch.bfloat16 or x.ndim != 2 or x.shape[0] % 2:
+        raise ValueError(f"expected (2R, C) bfloat16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    x = x.contiguous()
+    if x.device.type == "cpu":
+        return bitcast_pack_words_plain(x)
     if x.device.type != "cuda":
-        raise ValueError(f"no K1 for device {x.device}")
-    if packed.wflat.device != x.device:
-        raise ValueError("weights and input lie on different devices")
-    return _k1(x.contiguous(), packed)
+        raise ValueError(f"no K3 for device {x.device}")
+    out = torch.empty((x.shape[0] // 2, x.shape[1]), dtype=torch.int32,
+                      device=x.device)
+    err = _k3_function()(x.data_ptr(), out.data_ptr(), out.shape[0],
+                         out.shape[1],
+                         torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {err}")
+    launches_probe += 1
+    return out.to(torch.int64) & 0xFFFFFFFF
 
 
+@lru_cache(maxsize=None)
+def bitcast_packing(device=None) -> str:
+    """How `device` packs a (4, 128) bf16 array into (2, 128) 32-bit words:
+    'adj_low' (word i = rows (2i, 2i+1), row 2i in the low 16 bits),
+    'adj_high' (row 2i in the high bits) or 'other'. Probed once per device
+    with K3 (its plain version on the CPU) and cached, as the twin's
+    `_bitcast_packing`; `bitcast_packing.cache_clear()` forgets it."""
+    rows = torch.tensor([1.0, 2.0, 3.0, 4.0], dtype=torch.bfloat16,
+                        device=resolve_device(device))  # 3F80 4000 4040 4080
+    words = bitcast_pack_words(rows[:, None].expand(4, 128)).cpu()
+    w0, w1 = int(words[0, 0]), int(words[1, 0])
+    if (w0, w1) == (0x40003F80, 0x40804040):
+        return "adj_low"
+    if (w0, w1) == (0x3F804000, 0x40404080):
+        return "adj_high"
+    return "other"
+
+
+def resolve_variant(variant: str, device=None):
+    """The twin's `_resolve_variant`: 'dxb' is checked against the device's
+    probed packing and falls back to 'dxf' on 'other'. Returns (variant,
+    low_first)."""
+    if variant != "dxb":
+        return variant, True
+    pack = bitcast_packing(device)
+    if pack == "other":
+        return "dxf", True
+    return "dxb", pack == "adj_low"
+
+
+# ------------------------------------------------------------ the online CNN
 def make_online_cnn(folded: dict, compute_dtype=torch.float32,
                     variant: str = "dx", device=None):
     """The online forward of a BN-folded AndrewCNN: Conv_0 + ReLU as a
-    circular conv in PyTorch (TF32 off), then Conv_1..Conv_n through
-    `fused_cnn_forward`. Returns apply(x) for x (H, W, Cin) or (B, H, W, Cin)
-    giving float32 (..., H, W, n_out)."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError("K1 runs in float32; bf16 is later work")
-    if variant not in _VARIANTS:
-        raise NotImplementedError(
-            f"variant {variant!r}: only {_VARIANTS} are ported")
+    circular conv in PyTorch in float32 (TF32 off), then Conv_1..Conv_n in
+    `compute_dtype` through K1's wrapper (variants 'dx', 'tap', 'dxf',
+    'dxb') or K2's ('packed'). Returns apply(x) for x (H, W, Cin) or
+    (B, H, W, Cin) giving float32 (..., H, W, n_out)."""
     device = resolve_device(device)
+    variant, _ = resolve_variant(variant, device)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: one of {list(VARIANTS)}")
     params = folded["params"]
     k0 = torch.as_tensor(np.ascontiguousarray(np.asarray(
         params["Conv_0"]["kernel"], np.float32).transpose(3, 2, 0, 1)),
@@ -172,19 +398,29 @@ def make_online_cnn(folded: dict, compute_dtype=torch.float32,
                          device=device)
     packed = pack_folded_params(
         {"params": {f"Conv_{i - 1}": params[f"Conv_{i}"]
-                    for i in range(1, len(params))}}, device)
+                    for i in range(1, len(params))}}, device, compute_dtype)
+    n_out = packed.meta[-1][2]
 
     def first_layer(x: torch.Tensor) -> torch.Tensor:
-        """Conv_0 + ReLU: (B, H, W, Cin) -> K1's input (B, H, W, 128)."""
+        """Conv_0 + ReLU: (B, H, W, Cin) -> the chain's input (B, H, W,
+        C1), float32."""
         with exact_fp32():
             act = F.relu(circular_conv2d(
                 x.to(torch.float32).permute(0, 3, 1, 2), k0, b0))
         return act.permute(0, 2, 3, 1).contiguous()
 
+    def chain(act: torch.Tensor) -> torch.Tensor:
+        if VARIANTS[variant] == "k1":
+            return fused_cnn_forward(act, packed)
+        B, H, W, C = act.shape
+        x = act.reshape(B, H * W, C).transpose(0, 1).reshape(H * W, B * C)
+        out = packed_cnn_forward(x, packed)
+        return out.reshape(H * W, B, n_out).transpose(0, 1).reshape(
+            B, H, W, n_out)
+
     def apply(x: torch.Tensor) -> torch.Tensor:
         squeeze = x.ndim == 3
-        out = fused_cnn_forward(first_layer(x[None] if squeeze else x),
-                                packed)
+        out = chain(first_layer(x[None] if squeeze else x))
         return out[0] if squeeze else out
 
     apply.first_layer, apply.packed = first_layer, packed

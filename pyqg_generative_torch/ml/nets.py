@@ -1,6 +1,7 @@
 """The closure CNN as a PyTorch module, and its BatchNorm folding.
 
-Twin of `AndrewCNN` and `fold_batchnorm` in `pyqg_generative_tpu/ml/nets.py`:
+Twin of `AndrewCNN`, `VarCNN` and `fold_batchnorm` in
+`pyqg_generative_tpu/ml/nets.py`:
 the same 8-layer circular CNN (kernels [5,5,3x6], channels [128,64,32x5]),
 conv -> ReLU -> BatchNorm after each hidden conv. The module computes in
 PyTorch's NCHW but takes and returns NHWC, the twin's layout, so that the two
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["AndrewCNN", "fold_batchnorm", "circular_conv2d"]
+__all__ = ["AndrewCNN", "VarCNN", "fold_batchnorm", "circular_conv2d"]
 
 HIDDEN = (128, 64, 32, 32, 32, 32, 32)
 
@@ -72,6 +73,13 @@ class AndrewCNN(nn.Module):
         if self.final_activation != "None":
             x = getattr(F, self.final_activation)(x)
         return x.permute(0, 2, 3, 1)
+
+
+def VarCNN(n_in: int, n_out: int, **kw) -> AndrewCNN:
+    """AndrewCNN with a softplus head: the nonnegative pointwise conditional
+    variance of the GZ closure."""
+    kw.setdefault("final_activation", "softplus")
+    return AndrewCNN(n_in, n_out, **kw)
 
 
 def _to_numpy_tree(tree):

@@ -3,11 +3,12 @@
 Twin of `pyqg_generative_tpu/models/cgan_regression.py` (:43-95, :135-154,
 :274-351): the generator G(q, z) is an AndrewCNN on the PV normalised by the
 saved scaler, plus two channels of latent noise. Online, its BatchNorms are
-folded into the convolutions, and Conv_1..Conv_7 always go through K1's
-wrapper (`ml/fused_conv.py`): the CUDA kernel for a tensor on the card, its
-plain version for one on the CPU. The twin's `online_backend` switch has no
-counterpart. Training, the critic and the DeepInversion generator wait for
-later slices.
+folded into the convolutions, and Conv_1..Conv_7 always go through the
+wrapper of the kernel that `online_variant` names (`ml/fused_conv.py`), in
+`inference_dtype` (float32, or bfloat16 with Conv_0 kept in float32): the
+CUDA kernel for a tensor on the card, its plain version for one on the CPU.
+The twin's `online_backend` switch has no counterpart. Training, the critic
+and the DeepInversion generator wait for later slices.
 """
 from __future__ import annotations
 
@@ -16,12 +17,11 @@ import os
 import torch
 
 from ..device import exact_fp32, resolve_device
-from ..ml.fused_conv import make_online_cnn
+from ..ml.fused_conv import compute_dtype_of, make_online_cnn
 from ..ml.nets import AndrewCNN, fold_batchnorm
-from ..ml.scalers import ChannelwiseScaler
 from ..ml.weights import params_from_jax, read_msgpack
 from .base import Parameterization, register_model
-from .common import lev_from_nhwc, nhwc_from_lev
+from .common import lev_from_nhwc, nhwc_from_lev, read_scalers
 
 __all__ = ["CGANRegression"]
 
@@ -37,9 +37,7 @@ class CGANRegression(Parameterization):
         if generator != "Andrew":
             raise NotImplementedError(f"generator {generator!r} is not "
                                       "ported yet")
-        if inference_dtype != "float32":
-            raise NotImplementedError("the port runs the closure in float32; "
-                                      "bf16 is later work")
+        self.compute_dtype = compute_dtype_of(inference_dtype)
         self.device = resolve_device(device)
         self.folder = folder
         self.online_variant = online_variant
@@ -69,10 +67,7 @@ class CGANRegression(Parameterization):
         if self.net_mean is not None:
             self.net_mean.load_state_dict(params_from_jax(
                 read_msgpack(f"{folder}/net_mean.msgpack")))
-        self.x_scale = ChannelwiseScaler().read("x_scale.json", folder)
-        self.y_scale = ChannelwiseScaler().read("y_scale.json", folder)
-        self._x_std = torch.as_tensor(self.x_scale.std, device=self.device)
-        self._y_std = torch.as_tensor(self.y_scale.std, device=self.device)
+        read_scalers(self, folder)
         self._online_cache = None
         return True
 
@@ -96,11 +91,11 @@ class CGANRegression(Parameterization):
 
     def _online_cnn(self):
         """The online generator: BN-folded, Conv_0 in PyTorch and
-        Conv_1..Conv_7 through K1's wrapper."""
+        Conv_1..Conv_7 through a kernel's wrapper."""
         if self._online_cache is None:
             self._online_cache = make_online_cnn(
-                fold_batchnorm(self.vars_G), variant=self.online_variant,
-                device=self.device)
+                fold_batchnorm(self.vars_G), self.compute_dtype,
+                variant=self.online_variant, device=self.device)
         return self._online_cache
 
     @torch.no_grad()

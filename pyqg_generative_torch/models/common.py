@@ -1,4 +1,4 @@
-"""Layout helpers of the CNN closures.
+"""Helpers of the CNN closures: layouts and the saved scalers.
 
 Twin of `nhwc_from_lev` / `lev_from_nhwc` in
 `pyqg_generative_tpu/models/common.py`, extended to a leading member axis.
@@ -7,7 +7,18 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["nhwc_from_lev", "lev_from_nhwc"]
+from ..ml.scalers import ChannelwiseScaler
+
+__all__ = ["nhwc_from_lev", "lev_from_nhwc", "read_scalers"]
+
+
+def read_scalers(model, folder: str) -> None:
+    """Set `model.x_scale` and `model.y_scale` from a saved model's folder,
+    and their standard deviations as tensors on `model.device`."""
+    model.x_scale = ChannelwiseScaler().read("x_scale.json", folder)
+    model.y_scale = ChannelwiseScaler().read("y_scale.json", folder)
+    model._x_std = torch.as_tensor(model.x_scale.std, device=model.device)
+    model._y_std = torch.as_tensor(model.y_scale.std, device=model.device)
 
 
 def nhwc_from_lev(q: torch.Tensor) -> torch.Tensor:
