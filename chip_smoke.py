@@ -6,7 +6,8 @@ diagnostics on:
 - the main path: the GAN closure eddy_gan_64 in float32 (kernel K1);
 - path 2: the GZ closure r4_eddy_gz_64_op1_s0 at bf16, variant "dxbpair"
   (the mean and variance nets merged into one 256/128/64-channel net; the
-  probe K3 resolves "dxb", then K1 in bf16);
+  probe K3 resolves "dxb", then K1-bf16 on the tensor cores, 2 groups a
+  layer);
 - path 3: the VAE closure r4_eddy_vae_64_op1_s0, variant "packed" (the
   decoder through K2, the whole ensemble in one launch).
 
@@ -17,13 +18,21 @@ Phases, in order; any failure raises and the exit code is nonzero:
    each, all started together, and time the build;
 3. hold each kernel against its plain PyTorch version at its path's shapes
    and on random weights at 3 x 48^2, and time the kernel, the plain version
-   and a library yardstick (a chain of cuDNN convolutions; for K3, one
-   torch.stack of the row pairs viewed as int32, held against K3's words
-   too), beside the kernel's bound:
+   and a library yardstick (a chain of cuDNN convolutions; for K1-bf16 also
+   cuDNN with groups=2 on the merged pair; for K3, one torch.stack of the
+   row pairs viewed as int32, held against K3's words too), beside the
+   kernel's bound:
    - K1, float32: rtol 2e-4 / atol 2e-5*max|ref| (float32 sums in another
      order);
-   - K1-bf16 on the merged GZ pair: relative RMS <= 1e-3 (a float32 sum in
-     another order can flip a bf16 rounding), max|err| printed;
+   - K1-bf16 (tensor cores, its own summation order) by the two-part check
+     of fused_conv.layer_check, on the merged GZ pair at 10 x 64^2, a random
+     merged pair at 3 x 48^2 and a random single-group chain at 3 x 96^2
+     (two x-chunks a row): every layer against float64 at relative RMS <=
+     LAYER_BAR (3e-5), and the chain equal to its layers composed,
+     bitwise. The chain's relative RMS against its plain version is
+     printed, with no bar: the two sum in different orders, and flipped
+     bf16 roundings cascade. Its per-layer device times come from
+     torch.profiler;
    - K2, float32: rtol 2e-4 / atol 2e-5*max|ref|;
    - K3: exactly;
 4. drive each path: every launch count set to 0 just before it and read just
@@ -38,13 +47,19 @@ Phases, in order; any failure raises and the exit code is nonzero:
    kernel intervals over the window's device span;
 6. after all timings, hold each path on the card (2 members, 10 steps, the
    same frozen noise) to 2e-5*max|q| (see F32_BOUND): a float32 path against
-   the same path on the CPU; the bf16 path (GZ) against the same path on the
-   card with K1-bf16's plain version in its place, and the GZ path in
-   float32 against the CPU. The bf16 path's distance from the CPU is printed
-   beside the CPU's own bf16-versus-float32 distance, and held to a coarse
-   bound only (see BF16_COARSE).
+   the same path on the CPU, and the GZ path in float32 against the CPU.
+   The bf16 path (GZ): from its carry at step 0 and at step 10, one step
+   with K1-bf16 and one with its plain version patched in must hand the
+   chain bitwise the same input, and on that input every layer passes the
+   per-layer check and the chain equals its layers composed. Its 10-step
+   distance from the same path with the plain version patched in, and from
+   the CPU, are printed; the latter is held to a coarse bound only (see
+   BF16_COARSE).
 It prints a JSON line of the step profiles, one of kernel measurements, then
-the nvidia-smi line, and last {"ok": true, "device": {...}}.
+the nvidia-smi line, and last {"ok": true, "device": {...}}. In the kernel
+line, max_abs_err is max|kernel - plain| at the path's shapes; for K1-bf16,
+which sums in its own order, the largest per-layer max|K1-bf16 - float64|,
+and its extra library_grouped_ms times cuDNN with groups=2.
 
 Run from the repository root: python3 chip_smoke.py
 Where CUDA is not available it exits with code 1 and prints no result.
@@ -79,9 +94,8 @@ PATHS = {
 # differ by float32 rounding alone. In bf16 a float32 sum taken in another
 # order flips bf16 roundings, and the GZ mean net's output, a small
 # difference of large activations, amplifies them to the size of bf16's own
-# error; so the bf16 path is held at F32_BOUND against the same path on the
-# card with the chain in K1-bf16's plain version, which sums in the kernel's
-# order, and its distance from the CPU only to BF16_COARSE times the CPU's
+# error; so the bf16 path is held by the per-layer check on its real chain
+# inputs, and its distance from the CPU only to BF16_COARSE times the CPU's
 # own bf16-versus-float32 distance, which catches a blow-up and no more.
 F32_BOUND, BF16_COARSE = 2e-5, 2.0
 COUNTS = ("launches", "launches_bf16", "launches_packed", "launches_probe")
@@ -157,16 +171,27 @@ def float64_chain(x, packed):
     return act.permute(0, 2, 3, 1)
 
 
-def library_chain(x, weights, biases):
+def library_chain(x, weights, biases, groups=None):
     """The same chain as cuDNN convolutions on NCHW input, in the weights'
-    dtype (timed only)."""
-    from pyqg_generative_torch.ml.nets import circular_conv2d
+    dtype, each layer with its `groups` (OIHW weights of I = cin/groups),
+    dense if None (timed only)."""
+    import torch.nn.functional as F
     act = x
     for i, (w, b) in enumerate(zip(weights, biases)):
-        act = circular_conv2d(act, w, b)
+        r = w.shape[-1] // 2
+        act = F.conv2d(F.pad(act, (r, r, r, r), mode="circular"), w, b,
+                       groups=groups[i] if groups else 1)
         if i < len(weights) - 1:
             act = torch.relu(act)
     return act
+
+
+def grouped_weights(w, G):
+    """The G diagonal blocks of a dense OIHW kernel, as conv2d's grouped
+    (cout, cin/G, K, K)."""
+    co, ci = w.shape[0] // G, w.shape[1] // G
+    return torch.cat([w[g * co:(g + 1) * co, g * ci:(g + 1) * ci]
+                      for g in range(G)])
 
 
 def library_pack(x):
@@ -190,32 +215,78 @@ def rel_rms(out, ref):
     return float(((out - ref) ** 2).mean().sqrt() / (ref ** 2).mean().sqrt())
 
 
-def check_k1(fused_conv, folded, B, H, seed, dtype=torch.float32):
-    """K1 (float32 or bf16) against its plain version on Conv_0's output of
-    a random input; returns (packed, K1 input, max |K1 - plain|)."""
-    packed, x = chain_input(fused_conv, folded, B, H, seed, dtype)
+def check_k1(fused_conv, folded, B, H, seed):
+    """K1 in float32 against its plain version on Conv_0's output of a
+    random input; returns (packed, K1 input, max |K1 - plain|)."""
+    packed, x = chain_input(fused_conv, folded, B, H, seed)
     out = fused_conv.fused_cnn_forward(x, packed)
     torch.cuda.synchronize()
     ref = fused_conv.fused_cnn_forward_plain(x, packed)
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
     ref64 = float64_chain(x, packed)
-    name = "K1" if dtype == torch.float32 else "K1-bf16"
-    if dtype == torch.float32:
-        ok = torch.allclose(out, ref, rtol=2e-4, atol=2e-5 * scale)
-        bar = "rtol 2e-4 / atol 2e-5*max"
-    else:
-        rel = rel_rms(out, ref)
-        ok = rel <= 1e-3
-        bar = f"relative RMS {rel:.3e} <= 1e-3"
-    log(f"{name} vs plain at B={B}, {H}^2: max|err| {err:.3e}, max|ref| "
-        f"{scale:.3e}, within {bar}: {ok}; against float64 of the same "
-        f"weights: {name} {float((out.double() - ref64).abs().max()):.3e}, "
-        f"plain {float((ref.double() - ref64).abs().max()):.3e}")
+    ok = torch.allclose(out, ref, rtol=2e-4, atol=2e-5 * scale)
+    log(f"K1 vs plain at B={B}, {H}^2: max|err| {err:.3e}, max|ref| "
+        f"{scale:.3e}, within rtol 2e-4 / atol 2e-5*max: {ok}; against "
+        f"float64 of the same weights: K1 "
+        f"{float((out.double() - ref64).abs().max()):.3e}, plain "
+        f"{float((ref.double() - ref64).abs().max()):.3e}")
     if not ok:
-        raise AssertionError(f"{name} disagrees with its plain version at "
+        raise AssertionError(f"K1 disagrees with its plain version at "
                              f"B={B}, {H}^2")
     return packed, x, err
+
+
+def check_k1_bf16(fused_conv, packed, x, what):
+    """K1-bf16 by the two-part check (fused_conv.layer_check) on x; raises
+    if a layer misses LAYER_BAR or the chain differs from its layers
+    composed. Returns the largest per-layer max|K1-bf16 - float64|."""
+    before = fused_conv.launches_bf16
+    rep = fused_conv.layer_check(x, packed)
+    torch.cuda.synchronize()
+    n = len(packed.meta)
+    if fused_conv.launches_bf16 != before + 2 * n + 1:
+        raise AssertionError("K1-bf16 did not launch once a call")
+    bar = fused_conv.LAYER_BAR
+    for i, ((rel, err, plain), meta, g) in enumerate(zip(
+            rep["layers"], packed.meta, packed.groups)):
+        log(f"K1-bf16, {what}, layer {i + 1} (K, cin, cout) {meta} in {g} "
+            f"group(s): against float64 relative RMS {rel:.3e} (bar "
+            f"{bar:.0e}), max|err| {err:.3e}; plain version's max|err| "
+            f"{plain:.3e}")
+    worst = max(rel for rel, _, _ in rep["layers"])
+    chain = fused_conv.fused_cnn_forward(x, packed)
+    reading = rel_rms(chain, fused_conv.fused_cnn_forward_plain(x, packed))
+    log(f"K1-bf16, {what}: chain equals its layers composed bitwise: "
+        f"{rep['composed_equal']}; the chain against its plain version "
+        f"(another summation order; a reading, no bar): relative RMS "
+        f"{reading:.3e}")
+    if not worst <= bar:
+        raise AssertionError(f"K1-bf16, {what}: a layer reads relative RMS "
+                             f"{worst:.3e} against float64, over {bar}")
+    if not rep["composed_equal"]:
+        raise AssertionError(f"K1-bf16, {what}: the chain differs from its "
+                             "layers composed")
+    return max(err for _, err, _ in rep["layers"])
+
+
+def k1_bf16_layer_ms(fused_conv, packed, x, calls=10):
+    """Device ms a chain call of K1-bf16 spends in each kernel shape, by
+    torch.profiler over `calls` calls: {"5x5": ms, "3x3": ms}."""
+    fused_conv.fused_cnn_forward(x, packed)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fused_conv.fused_cnn_forward(x, packed)
+        torch.cuda.synchronize()
+    ms = {"5x5": 0.0, "3x3": 0.0}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                "conv_mma_kernel" in e.name:
+            key = "5x5" if "conv_mma_kernel<5" in e.name else "3x3"
+            ms[key] += (e.time_range.end - e.time_range.start) / calls / 1e3
+    return ms
 
 
 def to_member_packed(x):
@@ -276,15 +347,22 @@ def check_and_time_kernels(fused_conv, smi):
     pair = fused_conv.merge_folded_pair(*(
         fold_batchnorm(read_msgpack(f"{gz}/{n}.msgpack"))
         for n in ("net_mean", "net_var")))
-    packed, x, err = check_k1(fused_conv, pair, MEMBERS, NX, seed=3,
-                              dtype=torch.bfloat16)
-    check_k1(fused_conv, fused_conv.merge_folded_pair(
-        random_folded(rng, n_in=2), random_folded(rng, n_in=2)), 3, 48,
-        seed=4, dtype=torch.bfloat16)
+    packed, x = chain_input(fused_conv, pair, MEMBERS, NX, 3, torch.bfloat16)
+    err = check_k1_bf16(fused_conv, packed, x,
+                        f"merged GZ pair at {MEMBERS} x {NX}^2")
+    for folded, B, H, seed, what in (
+            (fused_conv.merge_folded_pair(random_folded(rng, n_in=2),
+                                          random_folded(rng, n_in=2)),
+             3, 48, 4, "random merged pair at 3 x 48^2"),
+            (random_folded(rng), 3, 96, 7,
+             "random single-group chain at 3 x 96^2")):
+        check_k1_bf16(fused_conv, *chain_input(
+            fused_conv, folded, B, H, seed, torch.bfloat16), what)
     k1_bf16_args = (x, packed)
     x_bf = x.permute(0, 3, 1, 2).contiguous().to(torch.bfloat16)
     w_bf = [w.to(torch.bfloat16) for w in packed.weights]
     b_bf = [b.to(torch.bfloat16) for b in packed.biases]
+    wg_bf = [grouped_weights(w, g) for w, g in zip(w_bf, packed.groups)]
     flops = fused_conv.flops_per_member(packed.meta, NX, NX) * MEMBERS
     # the merged weights are block-diagonal: the bound counts the
     # operations on nonzero weights, the work this input needs
@@ -299,8 +377,15 @@ def check_and_time_kernels(fused_conv, smi):
              + packed.bflat.numel()) + 2 * packed.wflat.numel(),
         PEAK_BF16_FLOPS,
         cuda_ms(lambda: library_chain(x_bf, w_bf, b_bf)))
+    rows["k1_bf16"]["library_grouped_ms"] = cuda_ms(
+        lambda: library_chain(x_bf, wg_bf, b_bf, packed.groups))
+    layer_ms = k1_bf16_layer_ms(fused_conv, packed, x)
     log(f"K1-bf16 on the merged pair: {flops / 1e9:.3f} GFLOP a call, "
-        f"{nonzero / 1e9:.3f} GFLOP of it on nonzero weights")
+        f"{nonzero / 1e9:.3f} GFLOP of it on nonzero weights; groups "
+        f"{packed.groups}; device ms a call by torch.profiler: the 5x5 "
+        f"layer {layer_ms['5x5']:.4f}, the 3x3 layers {layer_ms['3x3']:.4f}"
+        f"; cuDNN with groups {rows['k1_bf16']['library_grouped_ms']:.4f} "
+        f"ms on {smi}")
 
     # K2: the VAE decoder at path 3's shapes, member-packed
     vae = fold_batchnorm(read_msgpack(f"{PATHS['vae'][0]}/decoder.msgpack"))
@@ -325,8 +410,12 @@ def check_and_time_kernels(fused_conv, smi):
     probe = torch.tensor([1.0, 2.0, 3.0, 4.0], dtype=torch.bfloat16,
                          device=DEV)[:, None].expand(4, 128).contiguous()
     for xb in (torch.randn((4, 128), device=DEV).to(torch.bfloat16), probe):
+        before = fused_conv.launches_probe
         words = fused_conv.bitcast_pack_words(xb)
         torch.cuda.synchronize()
+        if words.dtype != torch.int64 or \
+                fused_conv.launches_probe != before + 1:
+            raise AssertionError("K3: not one launch of int64 words")
         if not torch.equal(words, fused_conv.bitcast_pack_words_plain(xb)):
             raise AssertionError("K3 disagrees with its plain version")
         if not torch.equal(words, library_pack(xb).to(torch.int64)
@@ -347,7 +436,7 @@ def check_and_time_kernels(fused_conv, smi):
              "k2": lambda: fused_conv.packed_cnn_forward(*k2_args),
              "k3": lambda: fused_conv.bitcast_pack_words(probe)}
     for key, r in rows.items():
-        lib = "packing" if key == "k3" else "cuDNN chain"
+        lib = "packing" if key == "k3" else "dense cuDNN chain"
         log(f"{r['name']}: {r['ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
             f"{lib} {r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); the host enqueues a call in "
@@ -439,19 +528,46 @@ def card_vs_reference(name, model, p, fused_conv):
     cpu = final_q(load_model(folder, device="cpu", **kw), "cpu")
     if kw.get("inference_dtype") != "bfloat16":
         return held("card vs CPU", card, cpu)
-    # the bf16 path: K1-bf16 in the path against its plain version in the
-    # path, both on the card (the model's chain looks the wrapper up at each
-    # call). One flipped bf16 rounding grows to bf16's whole error within
-    # 10 steps, so this holds only while the kernel sums in the plain
-    # version's order, as K1-bf16 does
+    # the bf16 path: K1-bf16 sums in its own order, so one flipped bf16
+    # rounding grows to bf16's whole error within 10 steps, and no path
+    # distance can hold it. Instead, at steps 0 and 10 the chain's real
+    # input is held: the same with the kernel and with its plain version
+    # patched in (the model's chain looks the wrapper up at each call), and
+    # passing the per-layer check there
+    packed = model._online_fns()[0].packed
+    step = make_online_step(pq, model, "AR1", -1)
+    carry = init_run_carry(pq, q0, 0, model, device=DEV)
+    carry[1].noise = torch.from_numpy(noise).to(DEV)
     kernel = fused_conv.fused_cnn_forward
+    for at in range(11):
+        if at in (0, 10):
+            seen = {}
+            for label, fn in (("kernel", kernel),
+                              ("plain", fused_conv.fused_cnn_forward_plain)):
+                def spy(x, p, _label=label, _fn=fn):
+                    seen[_label] = x.clone()
+                    return _fn(x, p)
+                fused_conv.fused_cnn_forward = spy
+                try:
+                    step(carry)
+                finally:
+                    fused_conv.fused_cnn_forward = kernel
+            if not torch.equal(seen["kernel"], seen["plain"]):
+                raise AssertionError(f"path {name}: at step {at}, the kernel "
+                                     "and its plain version see different "
+                                     "chain inputs")
+            log(f"path {name}, step {at}: the chain's input is bitwise the "
+                "same with K1-bf16 and with its plain version")
+            check_k1_bf16(fused_conv, packed, seen["kernel"],
+                          f"path {name}'s chain input at step {at}")
+        carry = step(carry)
     fused_conv.fused_cnn_forward = fused_conv.fused_cnn_forward_plain
     try:
         plain = final_q(model, DEV)
     finally:
         fused_conv.fused_cnn_forward = kernel
-    diff = held("K1-bf16 vs its plain version, both on the card", card,
-                plain)
+    diff = held("K1-bf16 vs its plain version, both on the card (a "
+                "reading)", card, plain, bound=float("inf"))
     # the rest of the path in float32, card against CPU
     f32 = {**kw, "inference_dtype": "float32"}
     cpu32 = final_q(load_model(folder, device="cpu", **f32), "cpu")
@@ -468,8 +584,9 @@ def card_vs_reference(name, model, p, fused_conv):
 def _group(name: str) -> str:
     low = name.lower()
     if "conv_circular_kernel" in name:
-        return ("K1-bf16" if "bfloat16" in name else "K1") + \
-            " (Conv_1..Conv_7)"
+        return "K1 (Conv_1..Conv_7)"
+    if "conv_mma_kernel" in name:
+        return "K1-bf16 (Conv_1..Conv_7)"
     if "packed_chain_kernel" in name:
         return "K2 (Conv_1..Conv_7)"
     if "fft" in low:  # before "conv": cuFFT's names hold "padding_t"

@@ -9,31 +9,33 @@
 // rolls its vectors. Per member it runs a chain of circular "same"
 // convolutions, bias on every layer, ReLU on all but the last, with float32
 // accumulation: in (B, H, W, Cin0) float32 NHWC, out (B, H, W, Cout_last)
-// float32 NHWC, kernels HWIO packed back to back in one buffer (float32 or
-// bf16), biases float32.
+// float32 NHWC, biases float32.
 //
-// Bound on an H100 (the FLOP counts follow from the weight shapes):
-// - float32, eddy_gan_64 widths at 10 x 64^2: 21.4 GFLOP a call, 0.32 ms at
-//   the 67 TFLOP/s float32 peak outside the tensor cores; the 22 MB it must
-//   move take 7 us at 3.35 TB/s, so it is bound by operations;
-// - bf16, the merged GZ mean/variance pair (256/128/64 channels) at
-//   10 x 64^2: 85.4 GFLOP a call (half of it on the zero blocks of the
-//   block-diagonal weights), 0.086 ms at 989 TFLOP/s dense bf16; the 44 MB
-//   it moves take 13 us, so again operations bind it.
+// float32: kernels HWIO packed back to back in one buffer. Bound on an H100:
+// eddy_gan_64's widths at 10 x 64^2 do 21.4 GFLOP a call, 0.32 ms at the
+// 67 TFLOP/s float32 peak outside the tensor cores; the 22 MB it must move
+// take 7 us at 3.35 TB/s, so operations bind it. Design, simple and exact
+// first: one direct circular-convolution kernel launched per layer (the tile
+// body in conv_tile.cuh), bias and ReLU fused, intermediates in a scratch
+// buffer (one 10x64^2x128 activation is 21 MB and stays in the 50 MB L2).
 //
-// Design, simple and exact first: one direct circular-convolution kernel
-// launched per layer (the tile body in conv_tile.cuh), bias and ReLU fused,
-// intermediates in a scratch buffer (one 10x64^2x128 activation is 21 MB in
-// float32, 10 MB in bf16, and stays in the 50 MB L2). In bf16 the kernel
-// stages bf16 in shared memory and stores bf16 intermediates, which halves
-// the scratch bytes, but still multiplies on the float32 FMA units. The TPU
-// design (the whole chain resident in 100 MB of VMEM) has no counterpart in
-// 227 KB of shared memory. Whole-chain fusion with an 8-cell halo, implicit
-// GEMM on the tensor cores (wgmma at bf16) and skipping the merged pair's
-// zero blocks are later work.
+// bf16: one implicit-GEMM kernel a layer on the tensor cores (wgmma;
+// conv_mma_bf16.cuh, which states its bound and design), reading each
+// layer's weights in the core-matrix layout that ml/fused_conv.py packs, and
+// skipping the zero blocks of a grouped (block-diagonal) layer. It rounds at
+// the twin's places: bf16 at each conv's input (the first layer's float32
+// input is cast while staged), float32 bias, ReLU and sum, bf16
+// intermediates, a float32 output. A one-layer chain writes the float32 sum
+// plus bias, with no ReLU and no rounding.
+//
+// The TPU design (the whole chain resident in 100 MB of VMEM) has no
+// counterpart in 227 KB of shared memory; whole-chain fusion is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "conv_mma_bf16.cuh"
 #include "conv_tile.cuh"
 
 namespace {
@@ -76,34 +78,52 @@ int conv_layer(int K, const Tin* x, const Tc* w, const float* b, Tout* y,
 
 // The chain: layer i reads the float32 input (i = 0) or the scratch half
 // written by layer i-1, and writes the other half, or `out` (float32) for
-// the last layer.
+// the last layer. float32: meta holds (K, cin, cout) a layer and wflat the
+// HWIO kernels; bf16: meta holds (K, cin, cout, groups) a layer and wflat
+// the tensor-core layout.
 template <typename Tc>
 int run_chain(const float* x, const Tc* wflat, const float* bflat,
               const int* meta, int n_layers, float* out, Tc* scratch, int B,
               int H, int W, cudaStream_t s) {
+  constexpr bool tc = std::is_same<Tc, bf16>::value;
+  constexpr int stride = tc ? 4 : 3;
   size_t half = 0;
   for (int i = 0; i + 1 < n_layers; ++i)
-    if ((size_t)meta[3 * i + 2] > half) half = meta[3 * i + 2];
+    if ((size_t)meta[stride * i + 2] > half) half = meta[stride * i + 2];
   half *= (size_t)B * H * W;
   const Tc* src = nullptr;
   size_t woff = 0, boff = 0;
   for (int i = 0; i < n_layers; ++i) {
-    const int K = meta[3 * i], cin = meta[3 * i + 1], cout = meta[3 * i + 2];
+    const int* m = meta + stride * i;
+    const int K = m[0], cin = m[1], cout = m[2], groups = tc ? m[3] : 1;
     const bool first = i == 0, last = i + 1 == n_layers;
     const Tc* w = wflat + woff;
     const float* b = bflat + boff;
     Tc* mid = scratch + (i % 2) * half;
     int err;
-    if (first && last)
-      err = conv_layer(K, x, w, b, out, B, H, W, cin, cout, 0, s);
-    else if (first)
-      err = conv_layer(K, x, w, b, mid, B, H, W, cin, cout, 1, s);
-    else if (last)
-      err = conv_layer(K, src, w, b, out, B, H, W, cin, cout, 0, s);
-    else
-      err = conv_layer(K, src, w, b, mid, B, H, W, cin, cout, 1, s);
+    if constexpr (tc) {
+      using pqg_tc::conv_mma_layer;
+      if (first && last)
+        err = conv_mma_layer(K, x, w, b, out, B, H, W, cin, cout, groups, 0, s);
+      else if (first)
+        err = conv_mma_layer(K, x, w, b, mid, B, H, W, cin, cout, groups, 1, s);
+      else if (last)
+        err = conv_mma_layer(K, src, w, b, out, B, H, W, cin, cout, groups, 0, s);
+      else
+        err = conv_mma_layer(K, src, w, b, mid, B, H, W, cin, cout, groups, 1, s);
+      woff += pqg_tc::packed_weight_elems(K, cin, cout, groups);
+    } else {
+      if (first && last)
+        err = conv_layer(K, x, w, b, out, B, H, W, cin, cout, 0, s);
+      else if (first)
+        err = conv_layer(K, x, w, b, mid, B, H, W, cin, cout, 1, s);
+      else if (last)
+        err = conv_layer(K, src, w, b, out, B, H, W, cin, cout, 0, s);
+      else
+        err = conv_layer(K, src, w, b, mid, B, H, W, cin, cout, 1, s);
+      woff += (size_t)K * K * cin * cout;
+    }
     if (err != 0) return err;
-    woff += (size_t)K * K * cin * cout;
     boff += cout;
     src = mid;
   }
@@ -112,10 +132,12 @@ int run_chain(const float* x, const Tc* wflat, const float* bflat,
 
 }  // namespace
 
-// Both entry points run the chain on `stream`. meta holds (K, cin, cout) per
-// layer, on the host. scratch holds two activations of B*H*W*max(hidden
-// cout) elements of the weights' type. The wrapper checks shapes; each
-// returns cudaGetLastError() of the launches (0 = ok).
+// Both entry points run the chain on `stream`. meta, on the host, holds
+// (K, cin, cout) a layer for float32 and (K, cin, cout, groups) for bf16;
+// wflat holds the HWIO kernels (float32) or the tensor-core layout (bf16).
+// scratch holds two activations of B*H*W*max(hidden cout) elements of the
+// weights' type. The wrapper checks shapes; each returns cudaGetLastError()
+// of the launches (0 = ok).
 extern "C" int k1_fused_cnn_forward_f32(const float* x, const float* wflat,
                                         const float* bflat, const int* meta,
                                         int n_layers, float* out,

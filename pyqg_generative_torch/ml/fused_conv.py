@@ -10,8 +10,10 @@ launches its kernel or raises), and a launch count:
   its first layer, as a chain of circular "same" convolutions with bias on
   every layer and ReLU on all but the last. It runs in float32 or, with
   `compute_dtype=torch.bfloat16`, on bf16 inputs and weights with float32
-  accumulation, bias, ReLU and output, as the twin does. Wrapper
-  `fused_cnn_forward`; counts `launches` (float32) and `launches_bf16`.
+  accumulation, bias, ReLU and output, as the twin does; in bf16 on the
+  tensor cores (`csrc/conv_mma_bf16.cuh`), skipping the zero blocks of a
+  block-diagonal layer. Wrapper `fused_cnn_forward`; counts `launches`
+  (float32) and `launches_bf16`.
 * K2 (`csrc/packed_chain.cu`) replaces `_fused_call_packed`, the variant
   "packed": the same chain for the whole batch in one launch, on the twin's
   member-packed (H*W, B*C) layout. Wrapper `packed_cnn_forward`; counts
@@ -41,6 +43,8 @@ from ..device import exact_fp32, resolve_device
 from .nets import circular_conv2d
 
 __all__ = ["PackedCNN", "pack_folded_params", "merge_folded_pair",
+           "weight_groups", "tensor_core_weights", "chain_layer",
+           "layer_check", "LAYER_BAR",
            "fused_cnn_forward", "fused_cnn_forward_plain",
            "packed_cnn_forward", "packed_cnn_forward_plain",
            "bitcast_pack_words", "bitcast_pack_words_plain",
@@ -75,14 +79,74 @@ class PackedCNN:
     """BN-folded conv chain on one device: per layer an OIHW kernel and a
     bias for the plain versions (the kernel rounded to bf16 where `dtype` is
     bf16, held as float32), and the same weights as HWIO packed back to back
-    in `dtype` (`wflat`) with float32 biases (`bflat`) for the kernels.
-    meta = ((K, cin, cout), ...)."""
+    in `dtype` (`wflat`) with float32 biases (`bflat`) for K1 in float32 and
+    K2. meta = ((K, cin, cout), ...); `groups` holds each layer's number of
+    diagonal blocks (`weight_groups`). In bf16, `wtc` holds the weights of
+    those blocks in K1-bf16's tensor-core layout (`tensor_core_weights`),
+    back to back."""
     weights: tuple
     biases: tuple
     wflat: torch.Tensor
     bflat: torch.Tensor
     meta: tuple
     dtype: torch.dtype = torch.float32
+    groups: tuple = ()
+    wtc: torch.Tensor | None = None
+
+
+def weight_groups(kernel: np.ndarray) -> int:
+    """The largest G for which an HWIO kernel (K, K, cin, cout) is
+    block-diagonal: every weight outside the G diagonal (cin/G, cout/G)
+    blocks is an exact zero (1 for a dense layer). The merged GZ pair's
+    layers after the first have G = 2 (`merge_folded_pair`)."""
+    K2, cin, cout = kernel.shape[0] * kernel.shape[1], *kernel.shape[2:]
+    nz = kernel.reshape(K2, cin, cout) != 0
+    for G in range(math.gcd(cin, cout), 1, -1):
+        if cin % G or cout % G:
+            continue
+        blocks = nz.reshape(K2, G, cin // G, G, cout // G).any(
+            axis=(0, 2, 4))
+        if not (blocks & ~np.eye(G, dtype=bool)).any():
+            return G
+    return 1
+
+
+KC = 16  # input channels of one wgmma k-step (csrc/conv_mma_bf16.cuh)
+
+
+def n_tile(cout_g: int) -> int:
+    """Output channels a K1-bf16 block computes for a group of `cout_g`
+    (csrc/conv_mma_bf16.cuh::n_tile)."""
+    return next((n for n in (8, 16, 32) if cout_g <= n), 64)
+
+
+def tensor_core_weights(kernel: np.ndarray, groups: int) -> np.ndarray:
+    """An HWIO kernel (K, K, cin, cout) of `groups` diagonal blocks in
+    K1-bf16's layout, flat: per (group, n-tile of N output channels, chunk
+    of 16 input channels, tap ky*K + kx), the 16 x N block as two 8-channel
+    halves of N rows of 8 channels, [half][n][8], each 8 x 8 a contiguous
+    wgmma core matrix. Channels past a group's width are zero."""
+    K, _, cin, cout = kernel.shape
+    cin_g, cout_g = cin // groups, cout // groups
+    N = n_tile(cout_g)
+    nt, nc = -(-cout_g // N), -(-cin_g // KC)
+    out = np.zeros((groups, K * K, nc * KC, nt * N), np.float32)
+    for g in range(groups):
+        out[g, :, :cin_g, :cout_g] = kernel[
+            :, :, g * cin_g:(g + 1) * cin_g,
+            g * cout_g:(g + 1) * cout_g].reshape(K * K, cin_g, cout_g)
+    # (g, tap, c, half, k, t, n) -> (g, t, c, tap, half, n, k)
+    out = out.reshape(groups, K * K, nc, 2, 8, nt, N)
+    return out.transpose(0, 5, 2, 1, 3, 6, 4).ravel()
+
+
+def _tc_elems(meta, groups: int) -> int:
+    """Elements of one layer's tensor-core weights
+    (csrc/conv_mma_bf16.cuh::packed_weight_elems)."""
+    K, cin, cout = meta
+    cin_g, cout_g = cin // groups, cout // groups
+    N = n_tile(cout_g)
+    return groups * -(-cout_g // N) * -(-cin_g // KC) * K * K * N * KC
 
 
 def pack_folded_params(folded: dict, device,
@@ -90,12 +154,13 @@ def pack_folded_params(folded: dict, device,
                        ) -> PackedCNN:
     """Pack BN-folded AndrewCNN params ({'params': {'Conv_i': {kernel
     (K,K,Cin,Cout), bias}}}, flax layout) for the plain versions and the
-    kernels; weights in `compute_dtype`, biases in float32."""
+    kernels; weights in `compute_dtype`, biases in float32. Each layer's
+    groups are read off its weights (`weight_groups`)."""
     if compute_dtype not in _DTYPES.values():
         raise TypeError(f"compute dtype {compute_dtype}: float32 or bfloat16")
     params = folded["params"]
     n = len([k for k in params if k.startswith("Conv_")])
-    weights, biases, hwio, meta = [], [], [], []
+    weights, biases, hwio, meta, groups, tc = [], [], [], [], [], []
     for i in range(n):
         k = np.asarray(params[f"Conv_{i}"]["kernel"], np.float32)
         b = np.asarray(params[f"Conv_{i}"].get(
@@ -109,6 +174,9 @@ def pack_folded_params(folded: dict, device,
         weights.append(w.to(compute_dtype).to(torch.float32))
         biases.append(torch.as_tensor(b, device=device))
         meta.append((K, cin, cout))
+        groups.append(weight_groups(k))
+        if compute_dtype == torch.bfloat16:
+            tc.append(tensor_core_weights(k, groups[-1]))
     for (_, _, cout), (_, cin, _) in zip(meta[:-1], meta[1:]):
         if cout != cin:
             raise ValueError("layer widths do not chain")
@@ -116,7 +184,32 @@ def pack_folded_params(folded: dict, device,
         weights=tuple(weights), biases=tuple(biases),
         wflat=torch.as_tensor(np.concatenate(hwio), device=device).to(
             compute_dtype),
-        bflat=torch.cat(biases), meta=tuple(meta), dtype=compute_dtype)
+        bflat=torch.cat(biases), meta=tuple(meta), dtype=compute_dtype,
+        groups=tuple(groups),
+        wtc=torch.as_tensor(np.concatenate(tc), device=device).to(
+            compute_dtype) if tc else None)
+
+
+def chain_layer(packed: PackedCNN, i: int) -> PackedCNN:
+    """Layer i of a chain as a one-layer chain, on views of its buffers. A
+    kernel runs it as it runs any chain: its output is the float32 sum plus
+    bias, with no ReLU and no rounding."""
+    def offset(sizes):
+        return sum(sizes[:i]), sizes[i]
+
+    meta = packed.meta
+    w0, nw = offset([K * K * cin * cout for K, cin, cout in meta])
+    b0, nb = offset([cout for _, _, cout in meta])
+    wtc = None
+    if packed.wtc is not None:
+        t0, nt = offset([_tc_elems(m, g)
+                         for m, g in zip(meta, packed.groups)])
+        wtc = packed.wtc[t0:t0 + nt]
+    return PackedCNN(
+        weights=(packed.weights[i],), biases=(packed.biases[i],),
+        wflat=packed.wflat[w0:w0 + nw], bflat=packed.bflat[b0:b0 + nb],
+        meta=(meta[i],), dtype=packed.dtype, groups=(packed.groups[i],),
+        wtc=wtc)
 
 
 def merge_folded_pair(folded_a: dict, folded_b: dict) -> dict:
@@ -178,6 +271,52 @@ def fused_cnn_forward_plain(x: torch.Tensor,
     return act.permute(0, 2, 3, 1).contiguous()
 
 
+# The per-layer bar of `layer_check`: relative RMS against float64. A
+# kernel that sums in its own order (K1-bf16 on the tensor cores) cannot be
+# held to its plain version over the chain, since each flipped bf16 rounding
+# cascades through the layers (relative RMS 1e-3 to 3e-3 on an H100). Per
+# layer, on bf16 inputs, both are float32 sums of exact products: scaling a
+# layer by 1 + 1e-4 reads 1e-4, over the bar, while a correct 3,200-term
+# sum (Conv_1 of the merged GZ pair) stays near 3e-6.
+LAYER_BAR = 3e-5
+
+
+def layer_check(x: torch.Tensor, packed: PackedCNN) -> dict:
+    """The check of a chain kernel that sums in its own order, on x (B, H,
+    W, Cin0), in two parts that each hold to float32's own accuracy:
+    1. each layer, run by `fused_cnn_forward` as a one-layer chain on its
+       input as the plain chain computes it, rounded to the compute dtype
+       (so the kernel's own cast at staging is exact), against the same
+       layer in float64: "layers" lists (relative RMS, max|err|, the plain
+       version's max|err| against float64), to hold to LAYER_BAR;
+    2. "composed_equal": whether the chain equals its one-layer calls in
+       turn, with torch.relu and the rounding to the compute dtype between
+       them, bitwise. This holds the chain's wiring: weight offsets,
+       groups, scratch, ReLU and rounding, the float32 last layer."""
+    n = len(packed.meta)
+    layers, act = [], x
+    for i in range(n):
+        one = chain_layer(packed, i)
+        xi = _round(act, packed.dtype).contiguous()
+        out = fused_cnn_forward(xi, one).double()
+        ref = circular_conv2d(xi.double().permute(0, 3, 1, 2),
+                              one.weights[0].double(),
+                              one.biases[0].double()).permute(0, 2, 3, 1)
+        plain = fused_cnn_forward_plain(xi, one)
+        layers.append((float(((out - ref) ** 2).mean().sqrt()
+                             / (ref ** 2).mean().sqrt()),
+                       float((out - ref).abs().max()),
+                       float((plain.double() - ref).abs().max())))
+        act = F.relu(plain)
+    chain = fused_cnn_forward(x, packed)
+    act = x
+    for i in range(n):
+        act = fused_cnn_forward(act, chain_layer(packed, i))
+        if i < n - 1:
+            act = _round(torch.relu(act), packed.dtype)
+    return {"layers": layers, "composed_equal": torch.equal(chain, act)}
+
+
 def _bind(library: str, symbol: str, argtypes):
     from ._build import load_library
     fn = getattr(load_library(library), symbol)
@@ -203,7 +342,9 @@ def _chain_function(library: str, dtype: torch.dtype):
 def _launch_chain(library: str, x: torch.Tensor, packed: PackedCNN,
                   out_shape, B: int, H: int, W: int) -> torch.Tensor:
     """Allocate the output and the ping-pong scratch, and launch the chain
-    kernel of `library` on the current stream; raise if it is refused."""
+    kernel of `library` on the current stream; raise if it is refused.
+    K1-bf16 takes the tensor-core weights and (K, cin, cout, groups) a
+    layer; K1 in float32 and K2 the HWIO weights and (K, cin, cout)."""
     if packed.wflat.device != x.device:
         raise ValueError("weights and input lie on different devices")
     fn = _chain_function(library, packed.dtype)
@@ -211,10 +352,16 @@ def _launch_chain(library: str, x: torch.Tensor, packed: PackedCNN,
     out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
     scratch = torch.empty(2 * B * H * W * hidden, dtype=packed.dtype,
                           device=x.device)
-    flat = [v for m in packed.meta for v in m]
+    if library == "fused_conv" and packed.dtype == torch.bfloat16:
+        wbuf = packed.wtc
+        flat = [v for m, g in zip(packed.meta, packed.groups)
+                for v in (*m, g)]
+    else:
+        wbuf = packed.wflat
+        flat = [v for m in packed.meta for v in m]
     meta = (ctypes.c_int * len(flat))(*flat)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), packed.wflat.data_ptr(), packed.bflat.data_ptr(),
+    err = fn(x.data_ptr(), wbuf.data_ptr(), packed.bflat.data_ptr(),
              meta, len(packed.meta), out.data_ptr(), scratch.data_ptr(),
              B, H, W, stream)
     if err != 0:
@@ -337,7 +484,7 @@ def bitcast_pack_words(x: torch.Tensor) -> torch.Tensor:
         return bitcast_pack_words_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"no K3 for device {x.device}")
-    out = torch.empty((x.shape[0] // 2, x.shape[1]), dtype=torch.int32,
+    out = torch.empty((x.shape[0] // 2, x.shape[1]), dtype=torch.int64,
                       device=x.device)
     err = _k3_function()(x.data_ptr(), out.data_ptr(), out.shape[0],
                          out.shape[1],
@@ -345,7 +492,7 @@ def bitcast_pack_words(x: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
     launches_probe += 1
-    return out.to(torch.int64) & 0xFFFFFFFF
+    return out
 
 
 @lru_cache(maxsize=None)

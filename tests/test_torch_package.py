@@ -151,6 +151,77 @@ def test_gz_and_vae_route_through_kernel_wrappers(monkeypatch):
     assert calls == [("packed_cnn_forward", (256, 3 * 128), torch.float32)]
 
 
+def test_groups_read_off_saved_weights():
+    """K1-bf16 skips the zero blocks of a block-diagonal layer, and reads
+    the blocks off the weights: every chain layer of the merged GZ pair
+    (r4_eddy_gz_64_op1_s0) has 2 groups, every layer of eddy_gan_64 one."""
+    assert _gz_pair_chain("cpu").groups == (2,) * 7
+    gan = fold_batchnorm(read_msgpack(f"{FOLDER}/G.msgpack"))
+    packed = fused_conv.pack_folded_params(gan, "cpu", torch.bfloat16)
+    assert packed.groups == (1,) * 8
+
+
+def test_stray_weight_makes_layer_dense():
+    """One nonzero weight outside the diagonal blocks makes a layer dense;
+    exact zeros there keep it grouped, whatever the blocks hold."""
+    k = np.zeros((3, 3, 16, 8), np.float32)
+    k[:, :, :8, :4] = 1.0
+    k[:, :, 8:, 4:] = -2.0
+    assert fused_conv.weight_groups(k) == 2
+    k[1, 2, 3, 6] = 1e-30
+    assert fused_conv.weight_groups(k) == 1
+    assert fused_conv.weight_groups(np.ones((5, 5, 4, 6), np.float32)) == 1
+
+
+@pytest.mark.parametrize("shape,groups", [((5, 5, 256, 128), 2),
+                                          ((3, 3, 64, 4), 2),
+                                          ((3, 3, 24, 80), 1),
+                                          ((3, 3, 2, 2), 1)])
+def test_tensor_core_layout_unpacks_to_hwio(shape, groups):
+    """K1-bf16's weight buffer, unpacked by a numpy re-index of its layout
+    (group, n-tile, chunk of 16 input channels, tap, 8-channel half, n, 8
+    channels), gives back the HWIO kernel exactly: each diagonal block
+    where it belongs, zeros elsewhere and in the padding."""
+    K, _, cin, cout = shape
+    rng = np.random.default_rng(14)
+    kernel = rng.standard_normal(shape).astype(np.float32)
+    ci, co = cin // groups, cout // groups
+    for g in range(groups):
+        block = kernel[:, :, g * ci:(g + 1) * ci, g * co:(g + 1) * co].copy()
+        kernel[:, :, g * ci:(g + 1) * ci, :] = 0
+        kernel[:, :, g * ci:(g + 1) * ci, g * co:(g + 1) * co] = block
+    flat = fused_conv.tensor_core_weights(kernel, groups)
+    N = fused_conv.n_tile(co)
+    nt, nc = -(-co // N), -(-ci // 16)
+    assert flat.size == groups * nt * nc * K * K * 2 * N * 8
+    t = flat.reshape(groups, nt, nc, K * K, 2, N, 8)
+    back = np.zeros_like(kernel)
+    for g in range(groups):
+        # (t, c, tap, half, n, k) -> (tap, c, half, k, t, n)
+        blk = t[g].transpose(2, 1, 3, 5, 0, 4).reshape(
+            K, K, nc * 16, nt * N)
+        assert not blk[:, :, ci:].any() and not blk[:, :, :, co:].any()
+        back[:, :, g * ci:(g + 1) * ci, g * co:(g + 1) * co] = \
+            blk[:, :, :ci, :co]
+    np.testing.assert_array_equal(back, kernel)
+
+
+def test_chain_layer_views_match_one_layer_packs():
+    """`chain_layer` cuts layer i out of a packed chain: its weights,
+    biases, tensor-core weights, meta and groups are those of the layer
+    packed alone."""
+    pair = _gz_pair_chain("cpu")
+    for i in (0, 3, 6):
+        one = fused_conv.chain_layer(pair, i)
+        k = one.weights[0].permute(2, 3, 1, 0).numpy()
+        alone = fused_conv.pack_folded_params({"params": {"Conv_0": {
+            "kernel": k, "bias": one.biases[0].numpy()}}}, "cpu",
+            torch.bfloat16)
+        assert one.meta == alone.meta and one.groups == alone.groups
+        for name in ("wflat", "bflat", "wtc"):
+            assert torch.equal(getattr(one, name), getattr(alone, name))
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
@@ -233,12 +304,55 @@ def _gz_pair_chain(device):
                     for i in range(1, len(pair))}}, device, torch.bfloat16)
 
 
+def _random_chain(rng, chans, kernels):
+    """A random BN-folded chain (flax layout) of widths `chans`."""
+    return {"params": {f"Conv_{i}": {
+        "kernel": (rng.standard_normal((k, k, chans[i], chans[i + 1]))
+                   / np.sqrt(k * k * chans[i])).astype(np.float32),
+        "bias": 0.1 * rng.standard_normal(chans[i + 1]).astype(np.float32)}
+        for i, k in enumerate(kernels)}}
+
+
+def _merged_random_pair(rng, chans, kernels):
+    """Two random chains merged block-diagonally, as the GZ pair is; the
+    first layer too, so that the chain reads [input_a | input_b]."""
+    a, b = (_random_chain(rng, chans, kernels)["params"] for _ in range(2))
+    out = {}
+    for name in a:
+        ka, kb = a[name]["kernel"], b[name]["kernel"]
+        K, _, ci, co = ka.shape
+        k = np.zeros((K, K, 2 * ci, 2 * co), np.float32)
+        k[:, :, :ci, :co], k[:, :, ci:, co:] = ka, kb
+        out[name] = {"kernel": k, "bias": np.concatenate(
+            [a[name]["bias"], b[name]["bias"]])}
+    return {"params": out}
+
+
+def _hold_layers(packed, x):
+    """K1-bf16 by the two-part check of `fused_conv.layer_check`: every
+    layer against float64 at relative RMS <= LAYER_BAR, and the chain equal
+    to its layers composed, bitwise; each wrapper call launches once."""
+    before = fused_conv.launches_bf16
+    rep = fused_conv.layer_check(x, packed)
+    torch.cuda.synchronize()
+    assert fused_conv.launches_bf16 == before + 2 * len(packed.meta) + 1
+    worst = max(rel for rel, _, _ in rep["layers"])
+    assert worst <= fused_conv.LAYER_BAR, rep["layers"]
+    assert rep["composed_equal"]
+
+
 @pytest.mark.cuda
 def test_k1_bf16_matches_plain_on_card():
-    """K1-bf16 against its plain version on the merged GZ pair at path 2's
-    shapes (10 x 64^2, 256 channels in) and on a toy chain over a grid that
-    is no multiple of the 16^2 tile. Relative RMS <= 1e-3: the two differ
-    only where a float32 sum taken in another order flips a bf16 rounding."""
+    """K1-bf16 on the tensor cores, on the merged GZ pair at path 2's shapes
+    (10 x 64^2, 256 channels in, 2 groups) and on a toy chain (2 channels)
+    over a grid that is no multiple of the kernel's 64-pixel rows. The
+    kernel sums in its own order, and over a chain the flipped bf16
+    roundings cascade (relative RMS 1e-3 to 3e-3 against the plain version
+    on an H100), so no chain-level bar tells a right kernel from a wrong
+    one. It is held instead by the two-part check: each layer, on its input
+    as the plain chain computes it, against float64 at relative RMS <=
+    3e-5, beside the plain version's own error; and the chain equal,
+    bitwise, to its layers composed."""
     _need_card()
     toy = {"params": {f"Conv_{i}": {
         "kernel": np.full((3, 3, 2, 2), 0.1, np.float32),
@@ -250,12 +364,32 @@ def test_k1_bf16_matches_plain_on_card():
              (3, 40, 40, 2))):
         x = torch.from_numpy(np.abs(rng.standard_normal(shape)).astype(
             np.float32)).cuda()
-        before = fused_conv.launches_bf16
-        out = fused_conv.fused_cnn_forward(x, packed)
-        torch.cuda.synchronize()
-        assert fused_conv.launches_bf16 == before + 1
-        ref = fused_conv.fused_cnn_forward_plain(x, packed)
-        assert _rel_rms(out, ref) <= 1e-3
+        _hold_layers(packed, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["merged_pair_48", "single_96",
+                                  "single_32x48"])
+def test_k1_bf16_layers_on_card(case):
+    """The two-part check of K1-bf16 on random chains: a merged pair at
+    3 x 48^2 (2 groups a layer), a single-group GAN-shaped chain at 2 x 96^2
+    (two 64-pixel chunks a row, the second ragged) and at 2 x 32 x 48 (a
+    grid that is not square)."""
+    _need_card()
+    rng = np.random.default_rng(13)
+    kernels = (5, 3, 3, 3, 3, 3, 3)
+    B, H, W = {"merged_pair_48": (3, 48, 48), "single_96": (2, 96, 96),
+               "single_32x48": (2, 32, 48)}[case]
+    if case == "merged_pair_48":
+        tree = _merged_random_pair(rng, (128, 64, 32, 32, 32, 32, 32, 2),
+                                   kernels)
+    else:
+        tree = _random_chain(rng, (128, 64, 32, 32, 32, 32, 32, 2), kernels)
+    packed = fused_conv.pack_folded_params(tree, "cuda", torch.bfloat16)
+    assert set(packed.groups) == {2 if case == "merged_pair_48" else 1}
+    x = torch.from_numpy(np.abs(rng.standard_normal(
+        (B, H, W, packed.meta[0][1]))).astype(np.float32)).cuda()
+    _hold_layers(packed, x)
 
 
 def _to_nhwc(x, B, H):
@@ -313,13 +447,15 @@ def test_k2_matches_plain_on_card():
 @pytest.mark.cuda
 def test_k3_matches_plain_on_card():
     """K3's words equal its plain version's exactly, on the probe's input
-    and on random bf16, and the card packs bf16 pairs 'adj_low'."""
+    and on random bf16, as int64 from one launch, and the card packs bf16
+    pairs 'adj_low'."""
     _need_card()
     x = torch.randn((8, 128), generator=torch.Generator().manual_seed(12)
                     ).to(torch.bfloat16)
     before = fused_conv.launches_probe
     words = fused_conv.bitcast_pack_words(x.cuda()).cpu()
     assert fused_conv.launches_probe == before + 1
+    assert words.dtype == torch.int64
     assert torch.equal(words, fused_conv.bitcast_pack_words_plain(x))
     fused_conv.bitcast_packing.cache_clear()
     assert fused_conv.bitcast_packing("cuda") == "adj_low"

@@ -88,6 +88,42 @@ def test_bf16_chain_matches_twin(folded, variant):
     assert _rel_rms(out, f32) < 2e-2
 
 
+def test_merged_toy_pair_has_two_groups(folded):
+    """Every chain layer of a merged toy pair is found block-diagonal in 2
+    groups, so K1-bf16 skips the zero blocks; a toy net alone is dense."""
+    pair = tconv.merge_folded_pair(folded, {"params": {
+        k: {"kernel": -np.asarray(v["kernel"]), "bias": v["bias"]}
+        for k, v in folded["params"].items()}})
+    packed = tconv.pack_folded_params(_rest(pair), "cpu", torch.bfloat16)
+    assert packed.groups == (2,) * len(KERNELS[1:])
+    assert packed.wtc.dtype == torch.bfloat16
+    assert tconv.pack_folded_params(_rest(folded), "cpu").groups == (1,) * 3
+
+
+@pytest.mark.parametrize("layer", [0, 2])
+def test_one_layer_plain_matches_twin(folded, layer):
+    """Layer i of the toy chain as a one-layer chain (`chain_layer`, the
+    form in which the per-layer check runs K1-bf16) through K1's wrapper on
+    the CPU: equal to the plain version of the layer packed alone, and to
+    the twin's `_fused_call` at bf16 on the same one-layer chain in
+    interpret mode, at relative RMS <= 1e-3 (the bf16 bar above)."""
+    rest = _rest(folded)["params"]
+    one = {"params": {"Conv_0": rest[f"Conv_{layer}"]}}
+    packed = tconv.pack_folded_params(_rest(folded), "cpu", torch.bfloat16)
+    x = _x((2, NX, NX, packed.meta[layer][1]), 6)
+    out = tconv.fused_cnn_forward(torch.from_numpy(x),
+                                  tconv.chain_layer(packed, layer)).numpy()
+    alone = tconv.fused_cnn_forward_plain(
+        torch.from_numpy(x),
+        tconv.pack_folded_params(one, "cpu", torch.bfloat16)).numpy()
+    np.testing.assert_array_equal(out, alone)
+    w, b, meta = jconv.pack_folded_params_dx(one, compute_dtype=jnp.bfloat16)
+    ref = np.asarray(jconv.fused_cnn_forward(
+        jnp.asarray(x), w, b, meta, compute_dtype=jnp.bfloat16,
+        interpret=True, variant="dxf"))
+    assert _rel_rms(out, ref) <= 1e-3
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_packed_plain_matches_twin(folded, dtype):
     """K2's plain version (one roll and one matmul per tap, member-packed)
