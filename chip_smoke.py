@@ -9,7 +9,7 @@ diagnostics on:
   probe K3 resolves "dxb", then K1-bf16 on the tensor cores, 2 groups a
   layer);
 - path 3: the VAE closure r4_eddy_vae_64_op1_s0, variant "packed" (the
-  decoder through K2, the whole ensemble in one launch).
+  decoder through K2, the whole ensemble in one launch, NHWC).
 
 Phases, in order; any failure raises and the exit code is nonzero:
 1. report the card (name and power limit from nvidia-smi), torch and CUDA;
@@ -22,18 +22,25 @@ Phases, in order; any failure raises and the exit code is nonzero:
    cuDNN with groups=2 on the merged pair; for K3, one torch.stack of the
    row pairs viewed as int32, held against K3's words too), beside the
    kernel's bound:
-   - K1, float32: rtol 2e-4 / atol 2e-5*max|ref| (float32 sums in another
-     order);
+   - K1 and K2, float32 (one FMA tile body, csrc/conv_fma.cuh):
+     rtol 2e-4 / atol 2e-5*max|ref| against the plain version (float32 sums
+     in another order; K2 also at 2 x 32 x 48), and the two-part check of
+     fused_conv.layer_check with each kernel's wrapper as the chain's
+     forward, on the path's chain at 10 x 64^2 and on random chains at
+     3 x 48^2 and at 2 x 96^2 (K1) or 2 x 32 x 48 (K2): every layer against
+     float64 at relative RMS <= LAYER_BAR (3e-5), and the chain equal to its
+     layers composed, bitwise. Their device ms a layer come from
+     torch.profiler (K1's launch by launch in chain calls, K2's from
+     one-layer chains), with Conv_1's TFLOP/s;
+   - K2 in bf16, on the VAE decoder at 10 x 64^2: relative RMS <= 1e-3
+     against K1's plain version in bf16 (the same order and roundings);
    - K1-bf16 (tensor cores, its own summation order) by the two-part check
-     of fused_conv.layer_check, on the merged GZ pair at 10 x 64^2, a random
-     merged pair at 3 x 48^2 and a random single-group chain at 3 x 96^2
-     (two x-chunks a row): every layer against float64 at relative RMS <=
-     LAYER_BAR (3e-5), and the chain equal to its layers composed,
-     bitwise. The chain's relative RMS against its plain version is
-     printed, with no bar: the two sum in different orders, and flipped
-     bf16 roundings cascade. Its per-layer device times come from
-     torch.profiler;
-   - K2, float32: rtol 2e-4 / atol 2e-5*max|ref|;
+     on the merged GZ pair at 10 x 64^2, a random merged pair at 3 x 48^2
+     and a random single-group chain at 3 x 96^2 (two x-chunks a row). The
+     chain's relative RMS against its plain version is printed, with no
+     bar: the two sum in different orders, and flipped bf16 roundings
+     cascade. Its per-layer device times come from torch.profiler, launch
+     by launch in chain calls;
    - K3: exactly;
 4. drive each path: every launch count set to 0 just before it and read just
    after; a short warm-up, then a timed run with snapshots. Each path's
@@ -59,7 +66,8 @@ It prints a JSON line of the step profiles, one of kernel measurements, then
 the nvidia-smi line, and last {"ok": true, "device": {...}}. In the kernel
 line, max_abs_err is max|kernel - plain| at the path's shapes; for K1-bf16,
 which sums in its own order, the largest per-layer max|K1-bf16 - float64|,
-and its extra library_grouped_ms times cuDNN with groups=2.
+and its extra library_grouped_ms times cuDNN with groups=2. K1 and K2 carry
+layer_ms, their device ms a layer, and K2 its bf16 reading.
 
 Run from the repository root: python3 chip_smoke.py
 Where CUDA is not available it exits with code 1 and prints no result.
@@ -202,23 +210,25 @@ def library_pack(x):
     return torch.stack((x[0::2], x[1::2]), -1).view(torch.int32)[..., 0]
 
 
-def chain_input(fused_conv, folded, B, H, seed, dtype=torch.float32):
-    """(packed chain, its input: Conv_0's output of a random field)."""
+def chain_input(fused_conv, folded, B, H, seed, dtype=torch.float32,
+                W=None):
+    """(packed chain, its input: Conv_0's output of a random field on
+    B x H x W, W = H unless given)."""
     apply = fused_conv.make_online_cnn(folded, dtype, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(seed)
     n_in = folded["params"]["Conv_0"]["kernel"].shape[2]
     return apply.packed, apply.first_layer(torch.randn(
-        (B, H, H, n_in), generator=gen, device=DEV))
+        (B, H, W or H, n_in), generator=gen, device=DEV))
 
 
 def rel_rms(out, ref):
     return float(((out - ref) ** 2).mean().sqrt() / (ref ** 2).mean().sqrt())
 
 
-def check_k1(fused_conv, folded, B, H, seed):
+def check_k1(fused_conv, folded, B, H, seed, W=None):
     """K1 in float32 against its plain version on Conv_0's output of a
     random input; returns (packed, K1 input, max |K1 - plain|)."""
-    packed, x = chain_input(fused_conv, folded, B, H, seed)
+    packed, x = chain_input(fused_conv, folded, B, H, seed, W=W)
     out = fused_conv.fused_cnn_forward(x, packed)
     torch.cuda.synchronize()
     ref = fused_conv.fused_cnn_forward_plain(x, packed)
@@ -237,84 +247,153 @@ def check_k1(fused_conv, folded, B, H, seed):
     return packed, x, err
 
 
-def check_k1_bf16(fused_conv, packed, x, what):
-    """K1-bf16 by the two-part check (fused_conv.layer_check) on x; raises
-    if a layer misses LAYER_BAR or the chain differs from its layers
-    composed. Returns the largest per-layer max|K1-bf16 - float64|."""
-    before = fused_conv.launches_bf16
-    rep = fused_conv.layer_check(x, packed)
+def check_layers(fused_conv, name, packed, x, what):
+    """A chain kernel (`name`: K1-bf16, K1 or K2) by the two-part check of
+    fused_conv.layer_check on x, with its wrapper as the chain's forward;
+    raises if a layer misses LAYER_BAR or the chain differs from its layers
+    composed. Returns the largest per-layer max|kernel - float64|."""
+    forward, plain_fn, count = {
+        "K1-bf16": (fused_conv.fused_cnn_forward,
+                    fused_conv.fused_cnn_forward_plain, "launches_bf16"),
+        "K1": (fused_conv.fused_cnn_forward,
+               fused_conv.fused_cnn_forward_plain, "launches"),
+        "K2": (fused_conv.packed_cnn_forward,
+               fused_conv.packed_cnn_forward_plain, "launches_packed")}[name]
+    before = getattr(fused_conv, count)
+    rep = fused_conv.layer_check(x, packed, forward)
     torch.cuda.synchronize()
     n = len(packed.meta)
-    if fused_conv.launches_bf16 != before + 2 * n + 1:
-        raise AssertionError("K1-bf16 did not launch once a call")
+    if getattr(fused_conv, count) != before + 2 * n + 1:
+        raise AssertionError(f"{name} did not launch once a call")
     bar = fused_conv.LAYER_BAR
     for i, ((rel, err, plain), meta, g) in enumerate(zip(
             rep["layers"], packed.meta, packed.groups)):
-        log(f"K1-bf16, {what}, layer {i + 1} (K, cin, cout) {meta} in {g} "
+        log(f"{name}, {what}, layer {i + 1} (K, cin, cout) {meta} in {g} "
             f"group(s): against float64 relative RMS {rel:.3e} (bar "
             f"{bar:.0e}), max|err| {err:.3e}; plain version's max|err| "
             f"{plain:.3e}")
     worst = max(rel for rel, _, _ in rep["layers"])
-    chain = fused_conv.fused_cnn_forward(x, packed)
-    reading = rel_rms(chain, fused_conv.fused_cnn_forward_plain(x, packed))
-    log(f"K1-bf16, {what}: chain equals its layers composed bitwise: "
-        f"{rep['composed_equal']}; the chain against its plain version "
-        f"(another summation order; a reading, no bar): relative RMS "
-        f"{reading:.3e}")
+    chain = forward(x, packed)
+    reading = rel_rms(chain, plain_fn(x, packed))
+    log(f"{name}, {what}: chain equals its layers composed bitwise: "
+        f"{rep['composed_equal']}; the chain against its plain version (a "
+        f"reading, no bar): relative RMS {reading:.3e}")
     if not worst <= bar:
-        raise AssertionError(f"K1-bf16, {what}: a layer reads relative RMS "
+        raise AssertionError(f"{name}, {what}: a layer reads relative RMS "
                              f"{worst:.3e} against float64, over {bar}")
     if not rep["composed_equal"]:
-        raise AssertionError(f"K1-bf16, {what}: the chain differs from its "
+        raise AssertionError(f"{name}, {what}: the chain differs from its "
                              "layers composed")
     return max(err for _, err, _ in rep["layers"])
 
 
-def k1_bf16_layer_ms(fused_conv, packed, x, calls=10):
-    """Device ms a chain call of K1-bf16 spends in each kernel shape, by
-    torch.profiler over `calls` calls: {"5x5": ms, "3x3": ms}."""
-    fused_conv.fused_cnn_forward(x, packed)
+def launch_ms(call, kernel, n=1, calls=10, windows=3):
+    """Mean device ms of each of the n launches of `kernel` (a substring of
+    the kernel's name) that call() makes in turn, by torch.profiler over
+    `calls` calls: the j-th launch of every call is counted as launch j. On
+    an H100 the profiler has missed one launch of a window, and once every
+    launch of a process's first window; as launches are told apart by their
+    order, a window that did not see n launches a call is traced again, up
+    to `windows` times."""
+    call()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fused_conv.fused_cnn_forward(x, packed)
-        torch.cuda.synchronize()
-    ms = {"5x5": 0.0, "3x3": 0.0}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                "conv_mma_kernel" in e.name:
-            key = "5x5" if "conv_mma_kernel<5" in e.name else "3x3"
-            ms[key] += (e.time_range.end - e.time_range.start) / calls / 1e3
+    for _ in range(windows):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name), key=lambda e: e.time_range.start)]
+        if len(us) == n * calls:
+            return [sum(us[j::n]) / calls / 1e3 for j in range(n)]
+        log(f"the profiler saw {len(us)} launches of {kernel} in {calls} "
+            f"calls of {n}; tracing the window again")
+    raise AssertionError(f"the profiler saw {len(us)} launches of {kernel} "
+                         f"in {calls} calls of {n}, {windows} windows "
+                         "running")
+
+
+def chain_layer_ms(fused_conv, name, packed, x):
+    """Device ms of each layer of a chain kernel (`name`: K1, K1-bf16 or
+    K2) on x. K1 launches once a layer, so its layers are read off chain
+    calls, launch by launch: the path's own kernels. K2 runs the chain in
+    one launch, so each layer is run alone, as a one-layer chain
+    (chain_layer) on its input as the plain chain computes it: without the
+    chain's grid-wide barriers, and on min(the resident grid, the layer's
+    work items) blocks, which for a layer of fewer items than the resident
+    grid (the 2-channel last layer: 80) is fewer than the chain's."""
+    if name != "K2":
+        kernel = "conv_mma_kernel" if name == "K1-bf16" \
+            else "conv_fma_kernel"
+        return launch_ms(lambda: fused_conv.fused_cnn_forward(x, packed),
+                         kernel, len(packed.meta))
+    ms, act = [], x
+    for i in range(len(packed.meta)):
+        one = fused_conv.chain_layer(packed, i)
+        ms += launch_ms(
+            lambda a=act, o=one: fused_conv.packed_cnn_forward(a, o),
+            "packed_chain_kernel")
+        act = torch.relu(fused_conv.fused_cnn_forward_plain(act, one))
     return ms
 
 
-def to_member_packed(x):
-    """(B, H, W, C) -> the twin's member-packed (H*W, B*C)."""
-    B, H, W, C = x.shape
-    return x.reshape(B, H * W, C).transpose(0, 1).reshape(H * W, B * C) \
-        .contiguous()
+def f32_layer_ms(fused_conv, name, packed, x):
+    """Device ms a layer of K1 or K2 in float32 (chain_layer_ms); logs them
+    with Conv_1's TFLOP/s and its share of the float32 peak."""
+    ms = chain_layer_ms(fused_conv, name, packed, x)
+    B, H, W, _ = x.shape
+    tflops = fused_conv.flops_per_member(packed.meta[:1], H, W) * B \
+        / (ms[0] * 1e-3) / 1e12
+    log(f"{name} float32 at {B} x {H} x {W}, device ms a layer (K, cin, "
+        "cout): " + "; ".join(f"{m} {t:.4f}" for m, t in
+                              zip(packed.meta, ms))
+        + f"; sum {sum(ms):.4f}; Conv_1 {tflops:.2f} TFLOP/s, "
+        f"{100 * tflops * 1e12 / PEAK_FP32_FLOPS:.1f}% of the float32 peak")
+    return ms
 
 
-def check_k2(fused_conv, folded, B, H, seed):
+def check_k2(fused_conv, folded, B, H, seed, W=None):
     """K2 against its plain version on Conv_0's output of a random input,
-    member-packed; returns (packed, K2 input, max |K2 - plain|)."""
-    packed, x = chain_input(fused_conv, folded, B, H, seed)
-    xp = to_member_packed(x)
-    out = fused_conv.packed_cnn_forward(xp, packed)
+    NHWC; returns (packed, K2 input, max |K2 - plain|)."""
+    packed, x = chain_input(fused_conv, folded, B, H, seed, W=W)
+    out = fused_conv.packed_cnn_forward(x, packed)
     torch.cuda.synchronize()
-    ref = fused_conv.packed_cnn_forward_plain(xp, packed)
+    ref = fused_conv.packed_cnn_forward_plain(x, packed)
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
     ok = torch.allclose(out, ref, rtol=2e-4, atol=2e-5 * scale)
-    k1 = to_member_packed(fused_conv.fused_cnn_forward_plain(x, packed))
-    log(f"K2 vs plain at B={B}, {H}^2: max|err| {err:.3e}, max|ref| "
+    k1 = fused_conv.fused_cnn_forward_plain(x, packed)
+    log(f"K2 vs plain at B={B}, {H}x{W or H}: max|err| {err:.3e}, max|ref| "
         f"{scale:.3e}, within rtol 2e-4 / atol 2e-5*max: {ok}; K2 vs K1's "
         f"plain version {float((out - k1).abs().max()):.3e}")
     if not ok:
         raise AssertionError(f"K2 disagrees with its plain version at "
-                             f"B={B}, {H}^2")
-    return packed, xp, err
+                             f"B={B}, {H}x{W or H}")
+    return packed, x, err
+
+
+def check_k2_bf16(fused_conv, folded, B, H, seed):
+    """K2's bf16 entry on the chain packed in bf16: relative RMS <= 1e-3
+    against K1's plain version in bf16, which sums each output in the
+    kernel's order and rounds at the same places (K2's own plain version
+    sums in another order, and flipped bf16 roundings cascade over the
+    chain); returns the reading."""
+    packed, x = chain_input(fused_conv, folded, B, H, seed, torch.bfloat16)
+    before = fused_conv.launches_packed
+    out = fused_conv.packed_cnn_forward(x, packed)
+    torch.cuda.synchronize()
+    if fused_conv.launches_packed != before + 1:
+        raise AssertionError("K2-bf16 did not launch once")
+    rel = rel_rms(out, fused_conv.fused_cnn_forward_plain(x, packed))
+    log(f"K2-bf16 at B={B}, {H}^2 against K1's plain version in bf16: "
+        f"relative RMS {rel:.3e} (bar 1e-3); against its own plain version "
+        f"(a reading) {rel_rms(out, fused_conv.packed_cnn_forward_plain(x, packed)):.3e}")
+    if not rel <= 1e-3:
+        raise AssertionError("K2-bf16 disagrees with K1's plain version")
+    return rel
 
 
 def check_and_time_kernels(fused_conv, smi):
@@ -329,6 +408,14 @@ def check_and_time_kernels(fused_conv, smi):
     gan = fold_batchnorm(read_msgpack(f"{FOLDER}/G.msgpack"))
     packed, x, err = check_k1(fused_conv, gan, MEMBERS, NX, seed=1)
     check_k1(fused_conv, random_folded(rng), 3, 48, seed=2)
+    # the per-layer check: the path's chain, a random chain at 3 x 48^2 (a
+    # ragged second tile a row) and at 2 x 96^2 (three tiles a row)
+    check_layers(fused_conv, "K1", packed, x,
+                 f"eddy_gan_64 at {MEMBERS} x {NX}^2")
+    for B, H, seed in ((3, 48, 8), (2, 96, 9)):
+        check_layers(fused_conv, "K1", *chain_input(
+            fused_conv, random_folded(rng), B, H, seed),
+            f"random chain at {B} x {H}^2")
     x_nchw = x.permute(0, 3, 1, 2).contiguous()
     k1_args = (x, packed)
     rows["k1"] = kernel_row(
@@ -341,6 +428,7 @@ def check_and_time_kernels(fused_conv, smi):
         PEAK_FP32_FLOPS,
         cuda_ms(lambda: library_chain(x_nchw, packed.weights,
                                       packed.biases)))
+    rows["k1"]["layer_ms"] = f32_layer_ms(fused_conv, "K1", packed, x)
 
     # K1-bf16: the merged GZ mean/variance pair at path 2's shapes
     gz = PATHS["gz"][0]
@@ -348,15 +436,15 @@ def check_and_time_kernels(fused_conv, smi):
         fold_batchnorm(read_msgpack(f"{gz}/{n}.msgpack"))
         for n in ("net_mean", "net_var")))
     packed, x = chain_input(fused_conv, pair, MEMBERS, NX, 3, torch.bfloat16)
-    err = check_k1_bf16(fused_conv, packed, x,
-                        f"merged GZ pair at {MEMBERS} x {NX}^2")
+    err = check_layers(fused_conv, "K1-bf16", packed, x,
+                       f"merged GZ pair at {MEMBERS} x {NX}^2")
     for folded, B, H, seed, what in (
             (fused_conv.merge_folded_pair(random_folded(rng, n_in=2),
                                           random_folded(rng, n_in=2)),
              3, 48, 4, "random merged pair at 3 x 48^2"),
             (random_folded(rng), 3, 96, 7,
              "random single-group chain at 3 x 96^2")):
-        check_k1_bf16(fused_conv, *chain_input(
+        check_layers(fused_conv, "K1-bf16", *chain_input(
             fused_conv, folded, B, H, seed, torch.bfloat16), what)
     k1_bf16_args = (x, packed)
     x_bf = x.permute(0, 3, 1, 2).contiguous().to(torch.bfloat16)
@@ -379,31 +467,42 @@ def check_and_time_kernels(fused_conv, smi):
         cuda_ms(lambda: library_chain(x_bf, w_bf, b_bf)))
     rows["k1_bf16"]["library_grouped_ms"] = cuda_ms(
         lambda: library_chain(x_bf, wg_bf, b_bf, packed.groups))
-    layer_ms = k1_bf16_layer_ms(fused_conv, packed, x)
+    ms = chain_layer_ms(fused_conv, "K1-bf16", packed, x)
     log(f"K1-bf16 on the merged pair: {flops / 1e9:.3f} GFLOP a call, "
         f"{nonzero / 1e9:.3f} GFLOP of it on nonzero weights; groups "
         f"{packed.groups}; device ms a call by torch.profiler: the 5x5 "
-        f"layer {layer_ms['5x5']:.4f}, the 3x3 layers {layer_ms['3x3']:.4f}"
+        f"layer {ms[0]:.4f}, the 3x3 layers {sum(ms[1:]):.4f}"
         f"; cuDNN with groups {rows['k1_bf16']['library_grouped_ms']:.4f} "
         f"ms on {smi}")
 
-    # K2: the VAE decoder at path 3's shapes, member-packed
+    # K2: the VAE decoder at path 3's shapes, NHWC
     vae = fold_batchnorm(read_msgpack(f"{PATHS['vae'][0]}/decoder.msgpack"))
-    packed, xp, err = check_k2(fused_conv, vae, MEMBERS, NX, seed=5)
+    packed, x, err = check_k2(fused_conv, vae, MEMBERS, NX, seed=5)
     check_k2(fused_conv, random_folded(rng), 3, 48, seed=6)
-    k2_args = (xp, packed)
-    x_nchw = xp.reshape(NX, NX, MEMBERS, -1).permute(2, 3, 0, 1) \
-        .contiguous()
+    check_k2(fused_conv, random_folded(rng), 2, 32, seed=10, W=48)
+    # the per-layer check: the path's chain, a random chain at 3 x 48^2 and
+    # at 2 x 32 x 48 (a grid that is not square)
+    check_layers(fused_conv, "K2", packed, x,
+                 f"the VAE decoder at {MEMBERS} x {NX}^2")
+    for B, H, W, seed in ((3, 48, 48, 11), (2, 32, 48, 12)):
+        check_layers(fused_conv, "K2", *chain_input(
+            fused_conv, random_folded(rng), B, H, seed, W=W),
+            f"random chain at {B} x {H} x {W}")
+    k2_bf16 = check_k2_bf16(fused_conv, vae, MEMBERS, NX, seed=13)
+    k2_args = (x, packed)
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
     rows["k2"] = kernel_row(
         "k2_packed_cnn_forward_f32", "packed_chain.cu", 485, err,
-        cuda_ms(lambda: fused_conv.packed_cnn_forward(xp, packed)),
-        cuda_ms(lambda: fused_conv.packed_cnn_forward_plain(xp, packed)),
+        cuda_ms(lambda: fused_conv.packed_cnn_forward(x, packed)),
+        cuda_ms(lambda: fused_conv.packed_cnn_forward_plain(x, packed)),
         fused_conv.flops_per_member(packed.meta, NX, NX) * MEMBERS,
-        4 * (xp.numel() + MEMBERS * NX * NX * packed.meta[-1][2]
+        4 * (x.numel() + MEMBERS * NX * NX * packed.meta[-1][2]
              + packed.wflat.numel() + packed.bflat.numel()),
         PEAK_FP32_FLOPS,
         cuda_ms(lambda: library_chain(x_nchw, packed.weights,
                                       packed.biases)))
+    rows["k2"]["layer_ms"] = f32_layer_ms(fused_conv, "K2", packed, x)
+    rows["k2"]["bf16_rel_rms_vs_k1_plain"] = k2_bf16
 
     # K3: exact, on the probe's input and on random bf16, against its plain
     # version and against the library's packing
@@ -558,8 +657,8 @@ def card_vs_reference(name, model, p, fused_conv):
                                      "chain inputs")
             log(f"path {name}, step {at}: the chain's input is bitwise the "
                 "same with K1-bf16 and with its plain version")
-            check_k1_bf16(fused_conv, packed, seen["kernel"],
-                          f"path {name}'s chain input at step {at}")
+            check_layers(fused_conv, "K1-bf16", packed, seen["kernel"],
+                         f"path {name}'s chain input at step {at}")
         carry = step(carry)
     fused_conv.fused_cnn_forward = fused_conv.fused_cnn_forward_plain
     try:
@@ -583,7 +682,7 @@ def card_vs_reference(name, model, p, fused_conv):
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "conv_circular_kernel" in name:
+    if "conv_fma_kernel" in name:
         return "K1 (Conv_1..Conv_7)"
     if "conv_mma_kernel" in name:
         return "K1-bf16 (Conv_1..Conv_7)"
@@ -640,14 +739,18 @@ def step_profile(step, carry):
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            carry = step(carry)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):  # a window whose kernels the profiler missed (see
+        #                 launch_ms) is traced again
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                carry = step(carry)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
     if not kernels:
         raise AssertionError("the profiler saw no device kernel")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)

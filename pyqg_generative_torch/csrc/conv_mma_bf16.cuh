@@ -1,7 +1,7 @@
 // K1-bf16's layer kernel: a circular "same" convolution as an implicit GEMM
 // on Hopper's tensor cores (wgmma), with the zero blocks of a block-diagonal
 // (grouped) layer skipped. Used by fused_conv.cu for every layer of the bf16
-// chain; K1 in float32 and K2 keep the FMA tile body of conv_tile.cuh.
+// chain; K1 in float32 and K2 run the FMA tile body of conv_fma.cuh.
 //
 // What it computes, per layer: y = conv(bf16(x), bf16(w)) + b, summed in
 // float32, ReLU if asked, stored as bf16 (a hidden layer) or float32 (the

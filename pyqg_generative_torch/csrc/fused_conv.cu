@@ -14,10 +14,10 @@
 // float32: kernels HWIO packed back to back in one buffer. Bound on an H100:
 // eddy_gan_64's widths at 10 x 64^2 do 21.4 GFLOP a call, 0.32 ms at the
 // 67 TFLOP/s float32 peak outside the tensor cores; the 22 MB it must move
-// take 7 us at 3.35 TB/s, so operations bind it. Design, simple and exact
-// first: one direct circular-convolution kernel launched per layer (the tile
-// body in conv_tile.cuh), bias and ReLU fused, intermediates in a scratch
-// buffer (one 10x64^2x128 activation is 21 MB and stays in the 50 MB L2).
+// take 7 us at 3.35 TB/s, so operations bind it. Design: one direct circular-convolution kernel launched per layer (the
+// register-blocked FMA tile body of conv_fma.cuh, its chunks staged by
+// cp.async), bias and ReLU fused, intermediates in a scratch buffer (one
+// 10x64^2x128 activation is 21 MB and stays in the 50 MB L2).
 //
 // bf16: one implicit-GEMM kernel a layer on the tensor cores (wgmma;
 // conv_mma_bf16.cuh, which states its bound and design), reading each
@@ -35,45 +35,54 @@
 
 #include <type_traits>
 
+#include "conv_fma.cuh"
 #include "conv_mma_bf16.cuh"
-#include "conv_tile.cuh"
 
 namespace {
 
-using pqg::TILE;
 using bf16 = __nv_bfloat16;
 
-template <int K, int CO_BLK, typename Tin, typename Tc, typename Tout>
-__global__ void __launch_bounds__(TILE * TILE)
-conv_circular_kernel(const Tin* __restrict__ x, const Tc* __restrict__ w,
-                     const float* __restrict__ bias, Tout* __restrict__ y,
-                     int H, int W, int cin, int cout, int relu) {
-  __shared__ pqg::TileSmem<K, CO_BLK, Tc> sm;
-  pqg::conv_tile<K, CO_BLK>(x, w, bias, y, gridDim.z, H, W, cin, cout,
-                            relu != 0, false, blockIdx.z, blockIdx.x,
-                            blockIdx.y * CO_BLK, sm);
+// One layer in float32: one block a work item of tile shape T
+// (conv_fma.cuh), blocks ordered channel block fastest, then tile, then
+// member.
+template <class T>
+__global__ void __launch_bounds__(pqg::THREADS, pqg::MIN_BLOCKS)
+conv_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ y, int H,
+                int W, int cin, int cout, int relu) {
+  pqg::conv_fma_nth<T>(x, w, bias, y, H, W, cin, cout, relu != 0,
+                       blockIdx.x);
 }
 
-template <int K, int CO_BLK, typename Tin, typename Tc, typename Tout>
-void launch(const Tin* x, const Tc* w, const float* b, Tout* y, int B, int H,
-            int W, int cin, int cout, int relu, cudaStream_t s) {
-  const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
-  const dim3 grid(tiles, (cout + CO_BLK - 1) / CO_BLK, B);
-  conv_circular_kernel<K, CO_BLK, Tin, Tc, Tout>
-      <<<grid, TILE * TILE, 0, s>>>(x, w, b, y, H, W, cin, cout, relu);
+template <class T>
+int launch(const float* x, const float* w, const float* b, float* y, int B,
+           int H, int W, int cin, int cout, int relu, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv_fma_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const int id = pqg::tile_of(T::K, cout);
+  const int blocks = pqg::tile_items(id, B, H, W, cout);
+  conv_fma_kernel<T><<<blocks, pqg::THREADS, T::SMEM, s>>>(
+      x, w, b, y, H, W, cin, cout, relu);
+  return (int)cudaGetLastError();
 }
 
-template <typename Tin, typename Tc, typename Tout>
-int conv_layer(int K, const Tin* x, const Tc* w, const float* b, Tout* y,
+int conv_layer(int K, const float* x, const float* w, const float* b, float* y,
                int B, int H, int W, int cin, int cout, int relu,
                cudaStream_t s) {
-  const bool wide = pqg::co_block(cout) == 32;
-  if (K == 5 && wide) launch<5, 32>(x, w, b, y, B, H, W, cin, cout, relu, s);
-  else if (K == 5) launch<5, 4>(x, w, b, y, B, H, W, cin, cout, relu, s);
-  else if (K == 3 && wide) launch<3, 32>(x, w, b, y, B, H, W, cin, cout, relu, s);
-  else if (K == 3) launch<3, 4>(x, w, b, y, B, H, W, cin, cout, relu, s);
-  else return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  switch (pqg::tile_of(K, cout)) {
+    case pqg::T_K5_WIDE:
+      return launch<pqg::K5Wide>(x, w, b, y, B, H, W, cin, cout, relu, s);
+    case pqg::T_K3_WIDE:
+      return launch<pqg::K3Wide>(x, w, b, y, B, H, W, cin, cout, relu, s);
+    case pqg::T_K5_NARROW:
+      return launch<pqg::K5Narrow>(x, w, b, y, B, H, W, cin, cout, relu, s);
+    case pqg::T_K3_NARROW:
+      return launch<pqg::K3Narrow>(x, w, b, y, B, H, W, cin, cout, relu, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The chain: layer i reads the float32 input (i = 0) or the scratch half

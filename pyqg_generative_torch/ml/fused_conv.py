@@ -15,9 +15,11 @@ launches its kernel or raises), and a launch count:
   block-diagonal layer. Wrapper `fused_cnn_forward`; counts `launches`
   (float32) and `launches_bf16`.
 * K2 (`csrc/packed_chain.cu`) replaces `_fused_call_packed`, the variant
-  "packed": the same chain for the whole batch in one launch, on the twin's
-  member-packed (H*W, B*C) layout. Wrapper `packed_cnn_forward`; counts
-  `launches_packed`.
+  "packed": the same chain for the whole ensemble packed into one launch,
+  on K1's NHWC layout (the twin's member-packed (H*W, B*C) layout survives
+  only in the plain version). Wrapper `packed_cnn_forward`; counts
+  `launches_packed`. K1 in float32 and K2 run one FMA tile body
+  (`csrc/conv_fma.cuh`).
 * K3 (`csrc/bitcast_probe.cu`) replaces `_bitcast_packing`, the probe of how
   bf16 pairs pack into 32-bit words that resolves "dxb". Wrapper
   `bitcast_pack_words`; counts `launches_probe`. On Hopper "dxb" and its
@@ -281,24 +283,27 @@ def fused_cnn_forward_plain(x: torch.Tensor,
 LAYER_BAR = 3e-5
 
 
-def layer_check(x: torch.Tensor, packed: PackedCNN) -> dict:
-    """The check of a chain kernel that sums in its own order, on x (B, H,
-    W, Cin0), in two parts that each hold to float32's own accuracy:
-    1. each layer, run by `fused_cnn_forward` as a one-layer chain on its
-       input as the plain chain computes it, rounded to the compute dtype
-       (so the kernel's own cast at staging is exact), against the same
-       layer in float64: "layers" lists (relative RMS, max|err|, the plain
-       version's max|err| against float64), to hold to LAYER_BAR;
+def layer_check(x: torch.Tensor, packed: PackedCNN, forward=None) -> dict:
+    """The check of a chain kernel that may sum in its own order, on x (B,
+    H, W, Cin0), in two parts that each hold to float32's own accuracy.
+    `forward` is the chain's wrapper: `fused_cnn_forward` (K1, the default)
+    or `packed_cnn_forward` (K2).
+    1. each layer, run by `forward` as a one-layer chain (`chain_layer`) on
+       its input as the plain chain computes it, rounded to the compute
+       dtype (so the kernel's own cast at staging is exact), against the
+       same layer in float64: "layers" lists (relative RMS, max|err|, the
+       plain version's max|err| against float64), to hold to LAYER_BAR;
     2. "composed_equal": whether the chain equals its one-layer calls in
        turn, with torch.relu and the rounding to the compute dtype between
        them, bitwise. This holds the chain's wiring: weight offsets,
        groups, scratch, ReLU and rounding, the float32 last layer."""
+    forward = forward or fused_cnn_forward
     n = len(packed.meta)
     layers, act = [], x
     for i in range(n):
         one = chain_layer(packed, i)
         xi = _round(act, packed.dtype).contiguous()
-        out = fused_cnn_forward(xi, one).double()
+        out = forward(xi, one).double()
         ref = circular_conv2d(xi.double().permute(0, 3, 1, 2),
                               one.weights[0].double(),
                               one.biases[0].double()).permute(0, 2, 3, 1)
@@ -308,10 +313,10 @@ def layer_check(x: torch.Tensor, packed: PackedCNN) -> dict:
                        float((out - ref).abs().max()),
                        float((plain.double() - ref).abs().max())))
         act = F.relu(plain)
-    chain = fused_cnn_forward(x, packed)
+    chain = forward(x, packed)
     act = x
     for i in range(n):
-        act = fused_cnn_forward(act, chain_layer(packed, i))
+        act = forward(act, chain_layer(packed, i))
         if i < n - 1:
             act = _round(torch.relu(act), packed.dtype)
     return {"layers": layers, "composed_equal": torch.equal(chain, act)}
@@ -325,9 +330,11 @@ def _bind(library: str, symbol: str, argtypes):
     return fn
 
 
-# x, wflat, bflat, meta, n_layers, out, scratch, B, H, W, stream
+# x, wflat, bflat, meta, n_layers, out, scratch, B, H, W, stream; K2 adds
+# its counters
 _CHAIN_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_K2_ARGS = _CHAIN_ARGS + [ctypes.c_void_p]
 
 
 @lru_cache(maxsize=None)
@@ -336,7 +343,23 @@ def _chain_function(library: str, dtype: torch.dtype):
     first launch."""
     prefix = {"fused_conv": "k1_fused", "packed_chain": "k2_packed"}[library]
     suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
-    return _bind(library, f"{prefix}_cnn_forward_{suffix}", _CHAIN_ARGS)
+    return _bind(library, f"{prefix}_cnn_forward_{suffix}",
+                 _K2_ARGS if library == "packed_chain" else _CHAIN_ARGS)
+
+
+# K2's work-item counters by (device index, stream): a zeroed buffer a
+# stream, which each launch leaves zero (csrc/packed_chain.cu::Counters), so
+# that launches on two streams never draw each other's items
+_k2_counters: dict = {}
+
+
+def _k2_counter_buffer(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _k2_counters:
+        words = _bind("packed_chain", "k2_counter_words", [])()
+        _k2_counters[key] = torch.zeros(words, dtype=torch.int32,
+                                        device=device)
+    return _k2_counters[key]
 
 
 def _launch_chain(library: str, x: torch.Tensor, packed: PackedCNN,
@@ -344,7 +367,8 @@ def _launch_chain(library: str, x: torch.Tensor, packed: PackedCNN,
     """Allocate the output and the ping-pong scratch, and launch the chain
     kernel of `library` on the current stream; raise if it is refused.
     K1-bf16 takes the tensor-core weights and (K, cin, cout, groups) a
-    layer; K1 in float32 and K2 the HWIO weights and (K, cin, cout)."""
+    layer; K1 in float32 and K2 the HWIO weights and (K, cin, cout); K2
+    also the current stream's counter buffer."""
     if packed.wflat.device != x.device:
         raise ValueError("weights and input lie on different devices")
     fn = _chain_function(library, packed.dtype)
@@ -361,15 +385,21 @@ def _launch_chain(library: str, x: torch.Tensor, packed: PackedCNN,
         flat = [v for m in packed.meta for v in m]
     meta = (ctypes.c_int * len(flat))(*flat)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), wbuf.data_ptr(), packed.bflat.data_ptr(),
-             meta, len(packed.meta), out.data_ptr(), scratch.data_ptr(),
-             B, H, W, stream)
+    args = [x.data_ptr(), wbuf.data_ptr(), packed.bflat.data_ptr(), meta,
+            len(packed.meta), out.data_ptr(), scratch.data_ptr(), B, H, W,
+            stream]
+    if library == "packed_chain":
+        args.append(_k2_counter_buffer(x.device, stream).data_ptr())
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{library} launch failed: cudaError {err}")
     return out
 
 
-def _check_input(x: torch.Tensor, name: str):
+def _check_chain_input(x: torch.Tensor, packed: PackedCNN, name: str):
+    if x.ndim != 4 or x.shape[-1] != packed.meta[0][1]:
+        raise ValueError(f"expected (B, H, W, {packed.meta[0][1]}), "
+                         f"got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise TypeError(f"{name} takes float32 input, got {x.dtype}")
     if x.device.type not in ("cpu", "cuda"):
@@ -381,10 +411,7 @@ def fused_cnn_forward(x: torch.Tensor, packed: PackedCNN) -> torch.Tensor:
     `packed.dtype`. A CPU tensor takes the plain version; a CUDA tensor
     launches K1."""
     global launches, launches_bf16
-    if x.ndim != 4 or x.shape[-1] != packed.meta[0][1]:
-        raise ValueError(f"expected (B, H, W, {packed.meta[0][1]}), "
-                         f"got {tuple(x.shape)}")
-    _check_input(x, "K1")
+    _check_chain_input(x, packed, "K1")
     if x.device.type == "cpu":
         return fused_cnn_forward_plain(x, packed)
     B, H, W, _ = x.shape
@@ -398,28 +425,17 @@ def fused_cnn_forward(x: torch.Tensor, packed: PackedCNN) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ K2
-def _packed_grid(x: torch.Tensor, packed: PackedCNN):
-    """(B, H, W) of a member-packed (H*W, B*Cin0) input; square grids only,
-    as the twin's `_fused_call_packed`."""
-    cin = packed.meta[0][1]
-    if x.ndim != 2 or x.shape[1] % cin:
-        raise ValueError(f"expected (H*W, B*{cin}), got {tuple(x.shape)}")
-    H = math.isqrt(x.shape[0])
-    if H * H != x.shape[0]:
-        raise ValueError("square grids only")
-    return x.shape[1] // cin, H, H
-
-
 def packed_cnn_forward_plain(x: torch.Tensor,
                              packed: PackedCNN) -> torch.Tensor:
     """K2's function in plain PyTorch, formulated as the twin's packed
-    kernel: per layer, per tap s = (dy, dx), one matmul of the rounded
-    activation with the tap's (cin, cout) slice of the tap-major weights,
-    accumulated circularly shifted, acc[h, w] += y_s[h + dy, w + dx] (one
-    `torch.roll`); then bias, and ReLU on all but the last layer. x
-    (H*W, B*Cin0) -> (H*W, B*Cout), float32 with TF32 off."""
-    B, H, W = _packed_grid(x, packed)
-    act = x.reshape(H, W, B, packed.meta[0][1])
+    kernel on its member-packed layout (H*W, B*C): per layer, per tap
+    s = (dy, dx), one matmul of the rounded activation with the tap's
+    (cin, cout) slice of the tap-major weights, accumulated circularly
+    shifted, acc[h, w] += y_s[h + dy, w + dx] (one `torch.roll`); then bias,
+    and ReLU on all but the last layer. x (B, H, W, Cin0) NHWC -> (B, H, W,
+    Cout), float32 with TF32 off; the member-packed layout lives inside."""
+    B, H, W, _ = x.shape
+    act = x.permute(1, 2, 0, 3).contiguous()  # the twin's (H*W, B*C)
     n = len(packed.meta)
     with exact_fp32():
         for i, ((K, cin, cout), w, b) in enumerate(
@@ -436,21 +452,21 @@ def packed_cnn_forward_plain(x: torch.Tensor,
             act = acc + b
             if i < n - 1:
                 act = F.relu(act)
-    return act.reshape(H * W, B * packed.meta[-1][2])
+    return act.permute(2, 0, 1, 3).contiguous()
 
 
 def packed_cnn_forward(x: torch.Tensor, packed: PackedCNN) -> torch.Tensor:
-    """The Conv_1..Conv_n chain on the member-packed x (H*W, B*Cin0)
-    float32, in `packed.dtype`, giving (H*W, B*Cout). A CPU tensor takes
-    the plain version; a CUDA tensor launches K2, one launch for all
-    members."""
+    """The Conv_1..Conv_n chain on x (B, H, W, Cin0) float32 NHWC, in
+    `packed.dtype`, giving (B, H, W, Cout). "Packed" is the whole ensemble
+    packed into one launch: a CUDA tensor launches K2 once for all members;
+    a CPU tensor takes the plain version."""
     global launches_packed
-    _check_input(x, "K2")
-    B, H, W = _packed_grid(x, packed)
+    _check_chain_input(x, packed, "K2")
     if x.device.type == "cpu":
         return packed_cnn_forward_plain(x, packed)
+    B, H, W, _ = x.shape
     out = _launch_chain("packed_chain", x.contiguous(), packed,
-                        (H * W, B * packed.meta[-1][2]), B, H, W)
+                        (B, H, W, packed.meta[-1][2]), B, H, W)
     launches_packed += 1
     return out
 
@@ -546,7 +562,6 @@ def make_online_cnn(folded: dict, compute_dtype=torch.float32,
     packed = pack_folded_params(
         {"params": {f"Conv_{i - 1}": params[f"Conv_{i}"]
                     for i in range(1, len(params))}}, device, compute_dtype)
-    n_out = packed.meta[-1][2]
 
     def first_layer(x: torch.Tensor) -> torch.Tensor:
         """Conv_0 + ReLU: (B, H, W, Cin) -> the chain's input (B, H, W,
@@ -559,11 +574,7 @@ def make_online_cnn(folded: dict, compute_dtype=torch.float32,
     def chain(act: torch.Tensor) -> torch.Tensor:
         if VARIANTS[variant] == "k1":
             return fused_cnn_forward(act, packed)
-        B, H, W, C = act.shape
-        x = act.reshape(B, H * W, C).transpose(0, 1).reshape(H * W, B * C)
-        out = packed_cnn_forward(x, packed)
-        return out.reshape(H * W, B, n_out).transpose(0, 1).reshape(
-            B, H, W, n_out)
+        return packed_cnn_forward(act, packed)
 
     def apply(x: torch.Tensor) -> torch.Tensor:
         squeeze = x.ndim == 3

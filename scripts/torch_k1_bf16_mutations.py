@@ -83,11 +83,18 @@ def check(package_dir):
             "old_bar_1e-3_pass": old <= 1e-3}
 
 
-def main():
+def run_mutants(mutants, script, caught):
+    """Copy the package once per entry of `mutants` (name -> None or
+    (file, text, replacement, ...)) into a temporary directory, apply the
+    replacement, and run `script` with the copy's path in one process a
+    copy, all at once (their nvcc builds overlap). Each process prints one
+    JSON line last; caught(name, result) says whether the copy behaved as
+    expected. Prints one JSON line a copy; returns the names that did not."""
     tmp = tempfile.mkdtemp()
     procs = {}
+    bad = []
     try:
-        for name, mutant in MUTANTS.items():
+        for name, mutant in mutants.items():
             copy = os.path.join(tmp, name)
             shutil.copytree(os.path.join(ROOT, "pyqg_generative_torch"),
                             os.path.join(copy, "pyqg_generative_torch"),
@@ -103,11 +110,9 @@ def main():
                                        "found once")
                 with open(path, "w") as f:
                     f.write(src.replace(mutant[1], mutant[2]))
-            # one process a copy, all at once: their nvcc builds overlap
             procs[name] = subprocess.Popen(
-                [sys.executable, __file__, copy], stdout=subprocess.PIPE,
+                [sys.executable, script, copy], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)
-        bad = []
         for name, proc in procs.items():
             out, _ = proc.communicate(timeout=900)
             if proc.returncode != 0:
@@ -115,13 +120,10 @@ def main():
                 bad.append(name)
                 continue
             res = json.loads(out.strip().splitlines()[-1])
-            must_fail = MUTANTS[name][3] if MUTANTS[name] else None
-            caught = must_fail is None and res["part1_pass"] and \
-                res["part2_pass"] or must_fail is not None and \
-                not res[f"part{must_fail}_pass"]
-            print(json.dumps({"mutant": name, "as_expected": caught, **res}),
+            ok = caught(name, res)
+            print(json.dumps({"mutant": name, "as_expected": ok, **res}),
                   flush=True)
-            if not caught:
+            if not ok:
                 bad.append(name)
     finally:
         for proc in procs.values():
@@ -129,7 +131,17 @@ def main():
                 proc.kill()
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
-    return 1 if bad else 0
+    return bad
+
+
+def main():
+    def caught(name, res):
+        must_fail = MUTANTS[name][3] if MUTANTS[name] else None
+        if must_fail is None:
+            return res["part1_pass"] and res["part2_pass"]
+        return not res[f"part{must_fail}_pass"]
+
+    return 1 if run_mutants(MUTANTS, __file__, caught) else 0
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@ agrees with its plain version on the card. This file imports no JAX, so that
 the card's tests run where JAX is not installed:
 python -m pytest tests/test_torch_package.py -m cuda --noconftest"""
 import ast
+import dataclasses
 import importlib
 import pathlib
 import subprocess
@@ -96,8 +97,8 @@ def test_kernel_module_import_builds_nothing(monkeypatch):
     packed = fused_conv.pack_folded_params(folded, "cpu")
     out = fused_conv.fused_cnn_forward(torch.ones(1, 8, 8, 2), packed)
     assert out.shape == (1, 8, 8, 2)
-    out = fused_conv.packed_cnn_forward(torch.ones(64, 2), packed)
-    assert out.shape == (64, 2)
+    out = fused_conv.packed_cnn_forward(torch.ones(1, 8, 8, 2), packed)
+    assert out.shape == (1, 8, 8, 2)
     assert fused_conv.bitcast_packing("cpu") == "adj_low"
     assert all(getattr(fused_conv, c) == 0 for c in counts)
     assert _build._LOADED == {}
@@ -125,7 +126,7 @@ def test_gz_and_vae_route_through_kernel_wrappers(monkeypatch):
     """The GZ model with path 2's settings sends its merged pair through
     K1's wrapper once a closure call (256 channels in, bf16 weights), and
     resolves "dxb" through K3's; the VAE with path 3's sends its decoder
-    through K2's once a call, member-packed. Spies count the calls on the
+    through K2's once a call, NHWC as K1's. Spies count the calls on the
     CPU, where each wrapper takes its plain version."""
     calls = []
     for name in ("fused_cnn_forward", "packed_cnn_forward",
@@ -148,7 +149,7 @@ def test_gz_and_vae_route_through_kernel_wrappers(monkeypatch):
     calls.clear()
     vae = load_model(VAE, device="cpu", **VAE_PATH)
     assert vae(q, z).shape == q.shape
-    assert calls == [("packed_cnn_forward", (256, 3 * 128), torch.float32)]
+    assert calls == [("packed_cnn_forward", (3, 16, 16, 128), torch.float32)]
 
 
 def test_groups_read_off_saved_weights():
@@ -222,6 +223,79 @@ def test_chain_layer_views_match_one_layer_packs():
             assert torch.equal(getattr(one, name), getattr(alone, name))
 
 
+def _toy_chain(rng):
+    """A random 3-layer chain of a 5x5 then two 3x3 layers, 8 -> 2 channels,
+    BN-folded (flax layout)."""
+    return _random_chain(rng, (8, 8, 8, 2), (5, 3, 3))
+
+
+@pytest.mark.parametrize("H,W", [(16, 16), (16, 24)])
+def test_k2_plain_on_nhwc_equals_k1_plain(H, W):
+    """K2's plain version (the twin's roll-and-matmul formulation on its
+    member-packed layout, reached from NHWC inside) equals K1's plain
+    version (circular conv) on the same NHWC input, float32, at rtol 1e-5:
+    the two sum each output in another order. The second grid is not
+    square, which K2 now takes."""
+    rng = np.random.default_rng(16)
+    packed = fused_conv.pack_folded_params(_toy_chain(rng), "cpu")
+    x = torch.from_numpy(np.abs(rng.standard_normal((3, H, W, 8))).astype(
+        np.float32))
+    out = fused_conv.packed_cnn_forward(x, packed)
+    ref = fused_conv.fused_cnn_forward_plain(x, packed)
+    assert out.shape == (3, H, W, 2)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+def test_layer_check_k2_route_on_cpu():
+    """`layer_check` with K2's wrapper as the chain's forward passes both
+    parts on the CPU (its plain version), and fails part 1 when the forward
+    sees Conv_1's weights scaled by 1 + 1e-4, the reference the unscaled
+    ones: the mutation that the chain-level bar (rtol 2e-4) lets pass."""
+    rng = np.random.default_rng(17)
+    packed = fused_conv.pack_folded_params(_toy_chain(rng), "cpu")
+    x = torch.from_numpy(np.abs(rng.standard_normal((2, 16, 16, 8))).astype(
+        np.float32))
+    rep = fused_conv.layer_check(x, packed, fused_conv.packed_cnn_forward)
+    assert max(rel for rel, _, _ in rep["layers"]) <= fused_conv.LAYER_BAR
+    assert rep["composed_equal"]
+
+    def scaled_conv1(x, p):
+        if p.meta[0][0] == 5:  # the chain's one 5x5 layer, Conv_1
+            p = dataclasses.replace(
+                p, weights=(p.weights[0] * (1 + 1e-4),) + p.weights[1:])
+        return fused_conv.packed_cnn_forward(x, p)
+
+    rep = fused_conv.layer_check(x, packed, scaled_conv1)
+    rels = [rel for rel, _, _ in rep["layers"]]
+    assert rels[0] > fused_conv.LAYER_BAR
+    assert max(rels[1:]) <= fused_conv.LAYER_BAR
+    ref = fused_conv.packed_cnn_forward(x, packed)
+    np.testing.assert_allclose(scaled_conv1(x, packed).numpy(), ref.numpy(),
+                               rtol=2e-4, atol=2e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("script", ["torch_k1_bf16_mutations",
+                                    "torch_f32_mutations",
+                                    "torch_conv_fma_tiles"])
+def test_card_scripts_find_their_sources(script, monkeypatch):
+    """The card's mutation and tile-sweep scripts change a copy of the
+    kernels' sources by exact text substitution; every text they replace is
+    found exactly once in the package's sources, so that an edit of a
+    source line they name shows here, with no compiler and no card."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.syspath_prepend(str(ROOT / "scripts"))
+    mod = importlib.import_module(script)
+    if script == "torch_conv_fma_tiles":
+        for name in mod.VARIANTS:
+            mod.variant_source(name)
+        return
+    pkg = ROOT / "pyqg_generative_torch"
+    for name, mutant in mod.MUTANTS.items():
+        if mutant:
+            assert (pkg / mutant[0]).read_text().count(mutant[1]) == 1, name
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
@@ -250,8 +324,8 @@ def test_saved_model_launches_k1_on_card():
 def test_k1_kernel_matches_plain_on_card():
     """K1 on the card against its plain version at the main path's widths
     (eddy_gan_64) and on a toy chain over a grid that is no multiple of the
-    kernel's 16^2 tile. rtol 2e-4, atol 2e-5*max: float32 sums in another
-    order (the bar of tests/test_pallas_conv.py:49)."""
+    kernel's 32-column tile. rtol 2e-4, atol 2e-5*max: float32 sums in
+    another order (the bar of tests/test_pallas_conv.py:49)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     toy = {"params": {f"Conv_{i}": {
@@ -328,14 +402,16 @@ def _merged_random_pair(rng, chans, kernels):
     return {"params": out}
 
 
-def _hold_layers(packed, x):
-    """K1-bf16 by the two-part check of `fused_conv.layer_check`: every
-    layer against float64 at relative RMS <= LAYER_BAR, and the chain equal
-    to its layers composed, bitwise; each wrapper call launches once."""
-    before = fused_conv.launches_bf16
-    rep = fused_conv.layer_check(x, packed)
+def _hold_layers(packed, x, forward=None, count="launches_bf16"):
+    """A chain kernel (K1-bf16 by default; K1 or K2 in float32 with their
+    wrapper `forward` and launch count) by the two-part check of
+    `fused_conv.layer_check`: every layer against float64 at relative RMS
+    <= LAYER_BAR, and the chain equal to its layers composed, bitwise; each
+    wrapper call launches once."""
+    before = getattr(fused_conv, count)
+    rep = fused_conv.layer_check(x, packed, forward)
     torch.cuda.synchronize()
-    assert fused_conv.launches_bf16 == before + 2 * len(packed.meta) + 1
+    assert getattr(fused_conv, count) == before + 2 * len(packed.meta) + 1
     worst = max(rel for rel, _, _ in rep["layers"])
     assert worst <= fused_conv.LAYER_BAR, rep["layers"]
     assert rep["composed_equal"]
@@ -392,17 +468,6 @@ def test_k1_bf16_layers_on_card(case):
     _hold_layers(packed, x)
 
 
-def _to_nhwc(x, B, H):
-    """Member-packed (H*H, B*C) -> (B, H, H, C)."""
-    return x.reshape(H, H, B, -1).permute(2, 0, 1, 3).contiguous()
-
-
-def _from_member_packed(y):
-    """(B, H, W, C) -> member-packed (H*W, B*C)."""
-    B, H, W, C = y.shape
-    return y.permute(1, 2, 0, 3).reshape(H * W, B * C)
-
-
 @pytest.mark.cuda
 def test_k2_matches_plain_on_card():
     """K2 against its plain version (one roll and one matmul per tap) on the
@@ -411,7 +476,7 @@ def test_k2_matches_plain_on_card():
     In bf16 on the decoder: relative RMS <= 1e-3 against K1's plain version,
     which sums in the kernel's order. K2's own plain version sums in another
     order, so bf16 roundings flip and cascade (relative RMS 4.1e-3 read on
-    an H100); it is no bf16 reference."""
+    an H100); it is no bf16 reference. Input and output are NHWC."""
     _need_card()
     dec = fold_batchnorm(read_msgpack(f"{VAE}/decoder.msgpack"))["params"]
     rest = {"params": {f"Conv_{i - 1}": dec[f"Conv_{i}"]
@@ -428,20 +493,71 @@ def test_k2_matches_plain_on_card():
                               (rest, 10, 64, torch.bfloat16)):
         packed = fused_conv.pack_folded_params(tree, "cuda", dtype)
         x = torch.from_numpy(np.abs(rng.standard_normal(
-            (H * H, B * 128))).astype(np.float32)).cuda()
+            (B, H, H, 128))).astype(np.float32)).cuda()
         before = fused_conv.launches_packed
         out = fused_conv.packed_cnn_forward(x, packed)
         torch.cuda.synchronize()
         assert fused_conv.launches_packed == before + 1
+        assert out.shape == (B, H, H, packed.meta[-1][2])
         if dtype == torch.bfloat16:
-            k1 = _from_member_packed(fused_conv.fused_cnn_forward_plain(
-                _to_nhwc(x, B, H), packed))
+            k1 = fused_conv.fused_cnn_forward_plain(x, packed)
             assert _rel_rms(out, k1) <= 1e-3
         else:
             ref = fused_conv.packed_cnn_forward_plain(x, packed)
             np.testing.assert_allclose(
                 out.cpu().numpy(), ref.cpu().numpy(), rtol=2e-4,
                 atol=2e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_k2_on_two_streams_on_card():
+    """K2 launched on two streams at once: each stream's launches draw their
+    work items from their own counters, so every output equals the same
+    call's output alone, bitwise. The chain is small enough (2 x 32^2) that
+    a launch takes less than the resident grid, and both streams' launches
+    queue behind a sleeping kernel, so that they run side by side."""
+    _need_card()
+    rng = np.random.default_rng(18)
+    packed = fused_conv.pack_folded_params(
+        _random_chain(rng, (128, 64, 32, 32, 32, 2), (5, 3, 3, 3, 3)),
+        "cuda")
+    xs = [torch.from_numpy(np.abs(rng.standard_normal(
+        (2, 32, 32, 128))).astype(np.float32)).cuda() for _ in range(2)]
+    alone = [fused_conv.packed_cnn_forward(x, packed) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for s in streams:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+    for _ in range(20):
+        for s, x, out in zip(streams, xs, outs):
+            with torch.cuda.stream(s):
+                out.append(fused_conv.packed_cnn_forward(x, packed))
+    torch.cuda.synchronize()
+    for ref, out in zip(alone, outs):
+        assert all(torch.equal(o, ref) for o in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1_48", "k1_96", "k2_48", "k2_32x48"])
+def test_f32_kernels_layers_on_card(case):
+    """The two-part check of K1 and K2 in float32 on a random GAN-shaped
+    chain: at 3 x 48^2 (a ragged second 32-column tile), at 2 x 96^2 (K1:
+    three tiles a row) and at 2 x 32 x 48 (K2: a grid that is not square)."""
+    _need_card()
+    forward, count = {"k1": (fused_conv.fused_cnn_forward, "launches"),
+                      "k2": (fused_conv.packed_cnn_forward,
+                             "launches_packed")}[case[:2]]
+    B, H, W = {"k1_48": (3, 48, 48), "k1_96": (2, 96, 96),
+               "k2_48": (3, 48, 48), "k2_32x48": (2, 32, 48)}[case]
+    rng = np.random.default_rng(15)
+    tree = _random_chain(rng, (128, 64, 32, 32, 32, 32, 32, 2),
+                         (5, 3, 3, 3, 3, 3, 3))
+    packed = fused_conv.pack_folded_params(tree, "cuda")
+    x = torch.from_numpy(np.abs(rng.standard_normal(
+        (B, H, W, 128))).astype(np.float32)).cuda()
+    _hold_layers(packed, x, forward, count)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The kernels' plain versions against the Pallas kernels they replace
 (pyqg_generative_tpu.ml.pallas_conv in interpret mode, at toy sizes): K1 in
-bf16 under each per-member variant name, K2 (the member-packed chain), K3
+bf16 under each per-member variant name, K2 (the chain for the whole batch,
+whose plain version keeps the twin's member-packed formulation), K3
 (the bf16 packing probe) with the variant resolution it drives, and the GZ
 pair merge. The kernels themselves are held against their plain versions on
 the card by tests/test_torch_package.py."""
@@ -126,8 +127,8 @@ def test_one_layer_plain_matches_twin(folded, layer):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_packed_plain_matches_twin(folded, dtype):
-    """K2's plain version (one roll and one matmul per tap, member-packed)
-    through make_online_cnn(variant="packed") against the twin's packed
+    """K2's plain version (one roll and one matmul per tap on the twin's
+    member-packed layout, reached from NHWC inside) through make_online_cnn(variant="packed") against the twin's packed
     Pallas kernel at B = 3, and against K1's plain version. float32: rtol
     2e-4, atol 2e-5*max (sums in another order); bf16: relative RMS <= 1e-3
     (the bf16 bar above)."""
@@ -148,6 +149,26 @@ def test_packed_plain_matches_twin(folded, dtype):
         _close(out, k1)
     else:
         assert _rel_rms(out, ref) <= 1e-3 and _rel_rms(out, k1) <= 1e-3
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_packed_nhwc_matches_twin_packed_call(folded, B):
+    """K2's wrapper on the NHWC chain input against the twin's packed Pallas
+    call `_fused_call_packed` (interpret mode) on the same input in its
+    member-packed (H*W, B*C) layout, float32: rtol 2e-4, atol 2e-5*max
+    (sums in another order)."""
+    rest = _rest(folded)
+    w, b, meta = jconv.pack_folded_params(rest, compute_dtype=jnp.float32)
+    x = _x((B, NX, NX, HID[0]), 7 + B)
+    xp = x.reshape(B, NX * NX, -1).transpose(1, 0, 2).reshape(NX * NX, -1)
+    ref = np.asarray(jconv._fused_call_packed(
+        jnp.asarray(xp), tuple(w), tuple(jnp.tile(v, (1, B)) for v in b),
+        meta, B, "float32", True))
+    ref = ref.reshape(NX, NX, B, -1).transpose(2, 0, 1, 3)
+    packed = tconv.pack_folded_params(rest, "cpu")
+    out = tconv.packed_cnn_forward(torch.from_numpy(x), packed).numpy()
+    assert out.shape == (B, NX, NX, 2)
+    _close(out, ref)
 
 
 def test_bitcast_probe_and_variants_match_twin():
