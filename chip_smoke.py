@@ -42,17 +42,36 @@ Phases, in order; any failure raises and the exit code is nonzero:
      cascade. Its per-layer device times come from torch.profiler, launch
      by launch in chain calls;
    - K3: exactly;
-4. drive each path: every launch count set to 0 just before it and read just
-   after; a short warm-up, then a timed run with snapshots. Each path's
-   kernel must launch once per closure call (K3 once, when the model
-   resolves "dxb"), and no other chain kernel;
-5. right after each path's run, where a step of it spends its time: the
-   host clock over an untraced window; the device time a step with the
-   host's launches hidden (a few steps queued behind a sleeping kernel, then
-   run back to back); and a window traced by torch.profiler, with device
-   time by kernel group, the host's time by operation, and the union of the
-   kernel intervals over the window's device span;
-6. after all timings, hold each path on the card (2 members, 10 steps, the
+4. drive each path through run_ensemble, whose steady steps replay
+   captured CUDA graphs (sim/graph.py): every launch count and the graph's
+   step counts set to 0 just before it and read just after; a short
+   warm-up, then a timed run with snapshots. A wrapper counts a call, and a
+   replay calls none, so each path's kernel must count one call a closure
+   call run eagerly or captured (K3 once, when the model resolves "dxb"),
+   and no other chain kernel. Beside it, an eager timed run of the same
+   model and step count (the step loop of make_online_step), which must
+   equal the graphed run bitwise (the same AR1 generator seed);
+5. right after each path's runs, where a step of it spends its time, for
+   the eager step and for the graphed step (sim.graph.GraphedStep, its
+   graphs captured first): the host clock over an untraced window; the
+   host's time to enqueue a step and the card's time a step, a few steps
+   queued behind a sleeping kernel, then run back to back; and a window
+   traced by torch.profiler, with device time and launches a step by kernel
+   group, the host's time by operation, and the union of the kernel
+   intervals over the window's device span. The path's chain kernel must
+   launch 7 times a step (K1, K1-bf16: a launch a layer) or once (K2), in
+   the eager and in the replayed step;
+6. each path graphed against eager on the card: 2 members x 64^2, 20 steps
+   (the AB3 start, both diagnostics graphs and replays of each), with frozen
+   noise and with AR1 white noise from one generator seed: q, the noise and
+   the diagnostics' sums equal the eager step loop's bitwise at every step;
+7. the drivers beyond run_ensemble on the main path, at 24 steps:
+   run_simulation, run_with_snapshots (each snapshot equal to
+   run_simulation's, bitwise), advance_run twice against once for twice the
+   snapshots (bitwise, the time coordinate shifted) and
+   run_ensemble_segmented against run_ensemble (bitwise), each replaying
+   graphs;
+8. after all timings, hold each path on the card (2 members, 10 steps, the
    same frozen noise) to 2e-5*max|q| (see F32_BOUND): a float32 path against
    the same path on the CPU, and the GZ path in float32 against the CPU.
    The bf16 path (GZ): from its carry at step 0 and at step 10, one step
@@ -64,10 +83,13 @@ Phases, in order; any failure raises and the exit code is nonzero:
    BF16_COARSE).
 It prints a JSON line of the step profiles, one of kernel measurements, then
 the nvidia-smi line, and last {"ok": true, "device": {...}}. In the kernel
-line, max_abs_err is max|kernel - plain| at the path's shapes; for K1-bf16,
-which sums in its own order, the largest per-layer max|K1-bf16 - float64|,
-and its extra library_grouped_ms times cuDNN with groups=2. K1 and K2 carry
-layer_ms, their device ms a layer, and K2 its bf16 reading.
+line, launches is the path's wrapper calls in phase 4's graphed runs, and
+graph_replays the replayed steps there, each of which launches the kernel
+as an eager step does; max_abs_err is max|kernel - plain| at the path's
+shapes; for K1-bf16, which sums in its own order, the largest per-layer
+max|K1-bf16 - float64|, and its extra library_grouped_ms times cuDNN with
+groups=2. K1 and K2 carry layer_ms, their device ms a layer, and K2 its bf16
+reading.
 
 Run from the repository root: python3 chip_smoke.py
 Where CUDA is not available it exits with code 1 and prints no result.
@@ -89,15 +111,19 @@ MEMBERS, NX = 10, 64
 WARMUP_STEPS, STEPS, SNAP_EVERY = 12, 300, 50
 PROFILE_STEPS, QUEUED_STEPS = 30, 5  # 5 steps of ~104 launches stay well
 #                                      within the card's launch queue
-# name -> (folder, load_model overrides, the count its chain kernel adds to)
+# name -> (folder, load_model overrides, the count its chain kernel adds to,
+# the chain kernel's group in a trace (_group), its launches a step)
 PATHS = {
-    "gan": (FOLDER, {}, "launches"),
+    "gan": (FOLDER, {}, "launches", "K1 (Conv_1..Conv_7)", 7),
     "gz": (str(MODELS / "r4_eddy_gz_64_op1_s0"),
            {"inference_dtype": "bfloat16", "online_variant": "dxbpair"},
-           "launches_bf16"),
+           "launches_bf16", "K1-bf16 (Conv_1..Conv_7)", 7),
     "vae": (str(MODELS / "r4_eddy_vae_64_op1_s0"),
-            {"online_variant": "packed"}, "launches_packed"),
+            {"online_variant": "packed"}, "launches_packed",
+            "K2 (Conv_1..Conv_7)", 1),
 }
+GRAPH_COUNTS = ("eager_steps", "captured_steps", "replayed_steps")
+DRIVER_STEPS, DRIVER_SNAP = 24, 6  # phase 7
 # |card - reference| / max|q| after 10 frozen-noise steps: float32 paths
 # differ by float32 rounding alone. In bf16 a float32 sum taken in another
 # order flips bf16 roundings, and the GZ mean net's output, a small
@@ -543,14 +569,58 @@ def check_and_time_kernels(fused_conv, smi):
     return rows
 
 
-def drive_path(name, fused_conv, p):
-    """Phase 4 for one path: counts zeroed, the model loaded, a warm-up and
-    a timed run through run_ensemble; returns (model, counts, rate)."""
-    from pyqg_generative_torch.models import load_model
-    from pyqg_generative_torch.sim import run_ensemble
-    folder, kw, count = PATHS[name]
+def set_counts(fused_conv, graph):
+    """Every launch count and the graph's step counts to 0."""
     for c in COUNTS:
         setattr(fused_conv, c, 0)
+    for c in GRAPH_COUNTS:
+        setattr(graph, c, 0)
+
+
+def read_counts(fused_conv, graph):
+    return ({c: getattr(fused_conv, c) for c in COUNTS},
+            {c: getattr(graph, c) for c in GRAPH_COUNTS})
+
+
+def eager_ensemble(p, closure, n_ens, steps_per_snap, n_snaps, key=0):
+    """run_ensemble's run, from its start and generator seed, by the eager
+    step loop of make_online_step: snapshots and diagnostics to the host, as
+    a Dataset."""
+    from pyqg_generative_torch.sim import init_run_carry, make_online_step
+    from pyqg_generative_torch.sim import simulate
+    model = closure["self"]
+    q0 = torch.stack([simulate.set_initial_condition(p, key * 1000 + j)
+                      for j in range(n_ens)])
+    carry = init_run_carry(p, q0, key, model, device=DEV)
+    step = make_online_step(p, model, closure["sampling"], closure["nsteps"])
+    snaps = []
+    for _ in range(n_snaps):
+        for _ in range(steps_per_snap):
+            carry = step(carry)
+        snaps.append(simulate._snapshot(carry[0], p))
+    snaps = {k: torch.stack([s[k] for s in snaps], 1).cpu().numpy()
+             for k in snaps[0]}
+    diags = {k: v.cpu().numpy() for k, v in
+             simulate.diagnostics.finalize(carry[2]).items()}
+    return simulate._build_dataset(snaps, diags, p, steps_per_snap * p.dt,
+                                   n_snaps, run_dim=True)
+
+
+def same_dataset(a, b):
+    """Whether two Datasets hold the same variables, bitwise."""
+    return sorted(a.keys()) == sorted(b.keys()) and all(
+        np.array_equal(a[k].values, b[k].values) for k in a.keys())
+
+
+def drive_path(name, fused_conv, graph, p):
+    """Phase 4 for one path: counts zeroed, the model loaded, a warm-up and
+    a timed run through run_ensemble (graphed); then an eager timed run of
+    the same steps, which must equal it bitwise. Returns (model, the graphed
+    run's launch counts and graph counts, its rate, the eager rate)."""
+    from pyqg_generative_torch.models import load_model
+    from pyqg_generative_torch.sim import run_ensemble
+    folder, kw, count, *_ = PATHS[name]
+    set_counts(fused_conv, graph)
     # the probe is cached per process; a fresh process resolves "dxb" anew
     fused_conv.bitcast_packing.cache_clear()
     model = load_model(folder, device=DEV, **kw)
@@ -563,15 +633,17 @@ def drive_path(name, fused_conv, p):
     ds = run_ensemble(p.replace(tmax=STEPS * p.dt), closure, n_ens=MEMBERS,
                       sampling_freq=SNAP_EVERY * p.dt, device=DEV)
     wall = time.perf_counter() - t0
-    counts = {c: getattr(fused_conv, c) for c in COUNTS}
+    counts, steps = read_counts(fused_conv, graph)
     calls = WARMUP_STEPS + STEPS
     want = {c: 0 for c in COUNTS}
-    want[count] = calls
+    want[count] = steps["eager_steps"] + steps["captured_steps"]
     if name == "gz":
         want["launches_probe"] = 1
-    if counts != want:
-        raise AssertionError(f"{name}: launch counts {counts} in {calls} "
-                             f"closure calls, expected {want}")
+    if counts != want or steps["eager_steps"] + steps["replayed_steps"] \
+            != calls or steps["replayed_steps"] < STEPS:
+        raise AssertionError(f"{name}: launch counts {counts} and graph "
+                             f"counts {steps} in {calls} steps, expected "
+                             f"{want} and every steady step replayed")
     n_snaps = STEPS // SNAP_EVERY
     for k in ("q", "u", "v", "psi"):
         v = ds[k].values
@@ -586,20 +658,158 @@ def drive_path(name, fused_conv, p):
     if not (ds["KEspec"].values > 0).any():
         raise AssertionError(f"{name}: no kinetic energy accumulated")
     rate = MEMBERS * STEPS / wall
-    log(f"path {name}: {MEMBERS} members x {STEPS} steps at {NX}^2 in "
-        f"{wall:.3f} s = {rate:.1f} member-steps/s; launch counts over "
-        f"load, warm-up and run {counts}; std(q) "
-        f"{ds['q'].values[:, -1].std():.3e}")
-    return model, counts, rate
+
+    set_counts(fused_conv, graph)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = eager_ensemble(p.replace(tmax=STEPS * p.dt), closure, MEMBERS,
+                           SNAP_EVERY, n_snaps)
+    eager_wall = time.perf_counter() - t0
+    eager_counts, eager_steps = read_counts(fused_conv, graph)
+    want = {c: 0 for c in COUNTS}
+    want[count] = STEPS
+    if eager_counts != want or any(eager_steps.values()):
+        raise AssertionError(f"{name}: the eager run's counts "
+                             f"{eager_counts}, {eager_steps}; expected "
+                             f"{want} and no graph")
+    if not same_dataset(ds, eager):
+        raise AssertionError(f"{name}: the graphed run differs from the "
+                             "eager step loop")
+    eager_rate = MEMBERS * STEPS / eager_wall
+    log(f"path {name}: {MEMBERS} members x {STEPS} steps at {NX}^2, "
+        f"graphed: {wall:.3f} s = {rate:.1f} member-steps/s, launch counts "
+        f"over load, warm-up and run {counts}, graph counts {steps}; eager: "
+        f"{eager_wall:.3f} s = {eager_rate:.1f} member-steps/s; the two "
+        f"runs equal bitwise; std(q) {ds['q'].values[:, -1].std():.3e}")
+    return model, counts, steps, rate, eager_rate
+
+
+def graphed_vs_eager(name, model, p, graph):
+    """Phase 6 for one path: 2 members, 20 steps, graphed (GraphedStep)
+    against the eager step loop, with frozen noise and with AR1 white noise
+    from one generator seed; q, the noise and the diagnostics' sums must be
+    equal bitwise at every step. Returns the steps replayed."""
+    from pyqg_generative_torch.qg import core
+    from pyqg_generative_torch.sim import init_run_carry, make_online_step
+    q0 = np.stack([core.default_initial_q(
+        p, rng=np.random.default_rng(j)).numpy() for j in range(2)])
+    replayed = 0
+    for nsteps in (-1, 1):
+        eager = init_run_carry(p, q0, 7, model, device=DEV)
+        graphed = init_run_carry(p, q0, 7, model, device=DEV)
+        step = make_online_step(p, model, "AR1", nsteps)
+        gstep = graph.GraphedStep(p, model, "AR1", nsteps)
+        before = graph.replayed_steps
+        for i in range(20):
+            eager, graphed = step(eager), gstep(graphed)
+            same = [torch.equal(eager[0].qh, graphed[0].qh),
+                    torch.equal(eager[1].noise, graphed[1].noise),
+                    all(torch.equal(v, graphed[2].sums[k])
+                        for k, v in eager[2].sums.items())]
+            if not all(same):
+                dq = (eager[0].qh - graphed[0].qh).abs().max()
+                dz = (eager[1].noise - graphed[1].noise).abs().max()
+                raise AssertionError(
+                    f"path {name}, AR1({nsteps}), step {i}: graphed and "
+                    f"eager differ (qh, noise, sums equal: {same}); "
+                    f"max|qh diff| {float(dq):.3e}, max|noise diff| "
+                    f"{float(dz):.3e}")
+        host = [(c[0].t, c[0].tc, c[1].counter, c[2].count)
+                for c in (eager, graphed)]
+        if host[0] != host[1] or graph.replayed_steps - before < 10:
+            raise AssertionError(f"path {name}, AR1({nsteps}): host values "
+                                 f"{host}, {graph.replayed_steps - before} "
+                                 "replays")
+        replayed += graph.replayed_steps - before
+        log(f"path {name}, 2 members x 20 steps, AR1({nsteps}): graphed "
+            f"equals eager bitwise at every step (q, noise, diagnostics' "
+            f"sums); {graph.replayed_steps - before} steps replayed from "
+            f"{len(gstep._graphs)} graphs")
+    return replayed
+
+
+def drivers_on_card(model, p, graph):
+    """Phase 7: the drivers beyond run_ensemble on the main path, each
+    advancing its steady steps by replays."""
+    from pyqg_generative_torch.sim import advance_run, init_run_carry, \
+        run_ensemble, run_ensemble_segmented, run_simulation, \
+        run_with_snapshots
+    pd = p.replace(tmax=DRIVER_STEPS * p.dt)
+    freq = DRIVER_SNAP * p.dt
+    n_snaps = DRIVER_STEPS // DRIVER_SNAP
+    closure = {"self": model, "sampling": "AR1", "nsteps": 1}
+    replays = {}
+
+    def replayed(what, fn):
+        before = graph.replayed_steps
+        out = fn()
+        replays[what] = graph.replayed_steps - before
+        if not replays[what]:
+            raise AssertionError(f"{what} replayed no step")
+        return out
+
+    sim = replayed("run_simulation", lambda: run_simulation(
+        pd, closure, sampling_freq=freq, key=3, device=DEV))
+    if sim["q"].dims != ("time", "lev", "y", "x") or \
+            sim["q"].shape != (n_snaps, 2, NX, NX) or \
+            sim["KEspec"].dims != ("lev", "l", "k") or \
+            not np.isfinite(sim["q"].values).all():
+        raise AssertionError(f"run_simulation: {sim['q'].dims} "
+                             f"{sim['q'].shape} {sim['KEspec'].dims}")
+    snaps = replayed("run_with_snapshots", lambda: list(run_with_snapshots(
+        pd, closure, sampling_freq=freq, key=3, device=DEV)))
+    for i, (t, ds) in enumerate(snaps):
+        if t != (i + 1) * freq or not np.array_equal(
+                ds["q"].values[0], sim["q"].values[i]):
+            raise AssertionError(f"run_with_snapshots, snapshot {i}: t {t} "
+                                 "or q differs from run_simulation's")
+
+    q0 = np.stack([sim["q"].values[0]] * 2).astype(np.float32)
+
+    def advance(n, times):
+        carry = init_run_carry(pd, q0, 5, model, device=DEV)
+        out = []
+        for _ in range(times):
+            carry, ds = advance_run(carry, pd, closure, n_snaps=n,
+                                    sampling_freq=freq, device=DEV)
+            out.append(ds)
+        return out
+
+    two = replayed("advance_run x 2", lambda: advance(n_snaps // 2, 2))
+    one = replayed("advance_run x 1", lambda: advance(n_snaps, 1))[0]
+    for k in ("q", "u", "v", "psi"):
+        joined = np.concatenate([two[0][k].values, two[1][k].values], 1)
+        if not np.array_equal(joined, one[k].values):
+            raise AssertionError(f"advance_run twice differs in {k}")
+    times = np.concatenate([two[0]["time"].values, two[1]["time"].values])
+    if not np.allclose(times, one["time"].values, rtol=1e-12, atol=0) or \
+            not all(np.array_equal(two[1][k].values, one[k].values)
+                    for k in one.keys()
+                    if k not in ("q", "u", "v", "psi", "time")):
+        raise AssertionError("advance_run twice: the time coordinate or "
+                             "the diagnostics differ")
+    whole = replayed("run_ensemble", lambda: run_ensemble(
+        pd, closure, n_ens=2, sampling_freq=freq, key=4, device=DEV))
+    seg = replayed("run_ensemble_segmented", lambda: run_ensemble_segmented(
+        pd, closure, n_ens=2, sampling_freq=freq, key=4, n_segments=2,
+        device=DEV))
+    if not same_dataset(whole, seg):
+        raise AssertionError("run_ensemble_segmented differs from "
+                             "run_ensemble")
+    log(f"drivers on the main path, {DRIVER_STEPS} steps at {NX}^2, AR1: "
+        "run_with_snapshots equals run_simulation, advance_run twice equals "
+        "it once, run_ensemble_segmented equals run_ensemble, bitwise; "
+        f"steps replayed {replays}")
+    return replays
 
 
 def card_vs_reference(name, model, p, fused_conv):
-    """Phase 6 for one path: |card - reference| / max|q| after 10
+    """Phase 8 for one path: |card - reference| / max|q| after 10
     frozen-noise steps of 2 members, against F32_BOUND (see there)."""
     from pyqg_generative_torch.models import load_model
     from pyqg_generative_torch.qg import core
     from pyqg_generative_torch.sim import init_run_carry, make_online_step
-    folder, kw, _ = PATHS[name]
+    folder, kw, *_ = PATHS[name]
     pq = p.replace(taveint=2 * p.dt)
     q0 = np.stack([core.default_initial_q(
         pq, rng=np.random.default_rng(j)).numpy() for j in range(2)])
@@ -755,10 +965,11 @@ def step_profile(step, carry):
         raise AssertionError("the profiler saw no device kernel")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     span_us = max(e for _, e in spans) - spans[0][0]
-    groups, by_name = {}, {}
+    groups, launches, by_name = {}, {}, {}
     for e in kernels:
         us = e.time_range.end - e.time_range.start
         groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + us
+        launches[_group(e.name)] = launches.get(_group(e.name), 0) + 1
         ms, calls = by_name.get(e.name[:80], (0.0, 0))
         by_name[e.name[:80]] = (ms + us / PROFILE_STEPS / 1e3, calls + 1)
     host = sorted(((e.key, e.self_cpu_time_total)
@@ -767,6 +978,7 @@ def step_profile(step, carry):
         "step_ms": step_ms,
         "queued_step_ms": queued_ms,
         "queued_enqueue_ms": enqueue_ms, "queued_sleep_ms": sleep_ms,
+        "host_ms_per_step": enqueue_ms / QUEUED_STEPS,
         "host_limited_share": None if queued_ms is None
         else 1 - queued_ms / step_ms,
         "traced_step_ms": traced_ms,
@@ -775,6 +987,8 @@ def step_profile(step, carry):
         "traced_device_ms_per_step": {
             k: v / PROFILE_STEPS / 1e3 for k, v in sorted(
                 groups.items(), key=lambda kv: -kv[1])},
+        "traced_launches_per_step": {
+            k: n / PROFILE_STEPS for k, n in sorted(launches.items())},
         "traced_host_top_ms_per_step": {
             k: us / PROFILE_STEPS / 1e3 for k, us in host[:8]},
         "traced_top_kernels_ms_calls_per_step": {
@@ -791,7 +1005,8 @@ def main():
     from pyqg_generative_torch.ml import _build, fused_conv
     from pyqg_generative_torch.qg import core
     from pyqg_generative_torch.qg.params import QGParams
-    from pyqg_generative_torch.sim import init_run_carry, make_online_step
+    from pyqg_generative_torch.sim import graph, init_run_carry, \
+        make_online_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -815,32 +1030,57 @@ def main():
     # 3. each kernel against its plain version, and its times
     rows = check_and_time_kernels(fused_conv, smi)
 
-    # 4. the three paths, each with 5. its step profile; then 6. each path
+    # 4. the three paths, each with 5. its step profiles; 6. each path
+    # graphed against eager; 7. the other drivers; then 8. each path
     # against the CPU, whose work would disturb the host's timings
     p = QGParams(nx=NX, dt=14400.0, tavestart=0.0, precision="single")
     models, profiles = {}, {}
     for name in PATHS:
-        models[name], counts, rate = drive_path(name, fused_conv, p)
-        if name == "gan":
-            rows["k1"]["launches"] = counts["launches"]
-        elif name == "gz":
-            rows["k1_bf16"]["launches"] = counts["launches_bf16"]
+        models[name], counts, steps, rate, eager_rate = drive_path(
+            name, fused_conv, graph, p)
+        row = {"gan": "k1", "gz": "k1_bf16", "vae": "k2"}[name]
+        rows[row]["launches"] = counts[PATHS[name][2]]
+        rows[row]["graph_replays"] = steps["replayed_steps"]
+        if name == "gz":
             rows["k3"]["launches"] = counts["launches_probe"]
-        else:
-            rows["k2"]["launches"] = counts["launches_packed"]
-        step = make_online_step(p, models[name], "AR1", 1, with_diags=True)
-        carry = init_run_carry(p, np.stack([core.default_initial_q(
-            p, rng=np.random.default_rng(j)).numpy()
-            for j in range(MEMBERS)]), 0, models[name], device=DEV)
-        for _ in range(2 * p.taveints):
-            carry = step(carry)
-        prof = profiles[name] = step_profile(step, carry)
-        prof["member_steps_per_s"] = rate
-        log(f"step profile, path {name}, {MEMBERS} x {NX}^2 on {smi}: "
-            f"{prof['step_ms']:.4f} ms a step by the host clock; "
-            f"{prof['queued_step_ms']} ms with the launches hidden; traced "
-            f"window busy {100 * prof['traced_busy_share']:.1f}% of its "
-            f"span")
+        prof = profiles[name] = {"member_steps_per_s": rate,
+                                 "member_steps_per_s_eager": eager_rate}
+        for kind_, step in (
+                ("eager", make_online_step(p, models[name], "AR1", 1)),
+                ("graphed", graph.GraphedStep(p, models[name], "AR1", 1))):
+            carry = init_run_carry(p, np.stack([core.default_initial_q(
+                p, rng=np.random.default_rng(j)).numpy()
+                for j in range(MEMBERS)]), 0, models[name], device=DEV)
+            for _ in range(3 * p.taveints):  # both graphs captured
+                carry = step(carry)
+            before = read_counts(fused_conv, graph)[1]
+            prof[kind_] = step_profile(step, carry)
+            after = read_counts(fused_conv, graph)[1]
+            replays = after["replayed_steps"] - before["replayed_steps"]
+            want = 2 * PROFILE_STEPS + QUEUED_STEPS \
+                if kind_ == "graphed" else 0
+            chain = prof[kind_]["traced_launches_per_step"].get(
+                PATHS[name][3], 0)
+            if replays != want or after["captured_steps"] != \
+                    before["captured_steps"] or chain != PATHS[name][4]:
+                raise AssertionError(
+                    f"path {name}, {kind_} step profile: {replays} steps "
+                    f"replayed, expected {want}; graph counts {after}; "
+                    f"{chain} launches of {PATHS[name][3]} a step, "
+                    f"expected {PATHS[name][4]}")
+            q = prof[kind_]
+            log(f"step profile, path {name}, {kind_}, {MEMBERS} x {NX}^2 on "
+                f"{smi}: {q['step_ms']:.4f} ms a step by the host clock; "
+                f"the host enqueues a step in {q['host_ms_per_step']:.4f} "
+                f"ms, the card runs it in {q['queued_step_ms']} ms; "
+                f"{q['traced_kernels_per_step']:.1f} kernels a step, "
+                f"{chain:g} of {PATHS[name][3]}; traced window busy "
+                f"{100 * q['traced_busy_share']:.1f}% of its span")
+    for name in PATHS:
+        profiles[name]["graphed_vs_eager_replays"] = graphed_vs_eager(
+            name, models[name], p, graph)
+    profiles["gan"]["drivers_replays"] = drivers_on_card(models["gan"], p,
+                                                          graph)
     for name in PATHS:
         profiles[name]["card_vs_reference"] = card_vs_reference(
             name, models[name], p, fused_conv)

@@ -37,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+#include <vector>
 
 #include "conv_fma.cuh"
 
@@ -278,4 +279,33 @@ extern "C" int k2_packed_cnn_forward_bf16(const float* x, const bf16* wflat,
   return run_packed(x, wflat, bflat, meta, n_layers, out, scratch,
                     static_cast<Counters*>(counters), B, H, W,
                     static_cast<cudaStream_t>(stream));
+}
+
+// A CUDA graph's kernel nodes, and how many of them launch cooperatively
+// (the attribute that K2's grid.sync() needs), so that the wrapper can check
+// that stream capture kept K2's cooperative launch. Host-only; returns the
+// first error code (0 = ok).
+extern "C" int k2_graph_kernel_nodes(void* graph, int* kernels,
+                                     int* cooperative) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess) return (int)err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0) err = cudaGraphGetNodes(g, nodes.data(), &n);
+  if (err != cudaSuccess) return (int)err;
+  *kernels = 0, *cooperative = 0;
+  for (cudaGraphNode_t node : nodes) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(node, &type);
+    if (err != cudaSuccess) return (int)err;
+    if (type != cudaGraphNodeTypeKernel) continue;
+    ++*kernels;
+    cudaLaunchAttributeValue value{};
+    err = cudaGraphKernelNodeGetAttribute(
+        node, cudaLaunchAttributeCooperative, &value);
+    if (err != cudaSuccess) return (int)err;
+    if (value.cooperative) ++*cooperative;
+  }
+  return 0;
 }

@@ -51,7 +51,8 @@ __all__ = ["PackedCNN", "pack_folded_params", "merge_folded_pair",
            "packed_cnn_forward", "packed_cnn_forward_plain",
            "bitcast_pack_words", "bitcast_pack_words_plain",
            "bitcast_packing", "resolve_variant", "compute_dtype_of",
-           "make_online_cnn", "flops_per_member", "launches",
+           "make_online_cnn", "flops_per_member", "graph_kernel_nodes",
+           "launches",
            "launches_bf16", "launches_packed", "launches_probe"]
 
 # Kernel calls made by the wrappers on CUDA tensors (a K1 call enqueues the
@@ -349,17 +350,36 @@ def _chain_function(library: str, dtype: torch.dtype):
 
 # K2's work-item counters by (device index, stream): a zeroed buffer a
 # stream, which each launch leaves zero (csrc/packed_chain.cu::Counters), so
-# that launches on two streams never draw each other's items
+# that launches on two streams never draw each other's items. A graph that
+# captures K2 holds its stream's buffer, which is therefore allocated by an
+# eager launch on that stream before any capture, never under one.
 _k2_counters: dict = {}
 
 
 def _k2_counter_buffer(device: torch.device, stream: int) -> torch.Tensor:
     key = (device.index, stream)
     if key not in _k2_counters:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K2's counters for this stream would be "
+                               "allocated under graph capture: launch K2 "
+                               "eagerly on the capture stream first")
         words = _bind("packed_chain", "k2_counter_words", [])()
         _k2_counters[key] = torch.zeros(words, dtype=torch.int32,
                                         device=device)
     return _k2_counters[key]
+
+
+def graph_kernel_nodes(graph: int) -> tuple[int, int]:
+    """(kernel nodes, cooperative kernel nodes) of a CUDA graph, by its
+    `cudaGraph_t` handle (`torch.cuda.CUDAGraph.raw_cuda_graph()`)."""
+    kernels, cooperative = ctypes.c_int(), ctypes.c_int()
+    err = _bind("packed_chain", "k2_graph_kernel_nodes",
+                [ctypes.c_void_p] * 3)(graph, ctypes.byref(kernels),
+                                       ctypes.byref(cooperative))
+    if err != 0:
+        raise RuntimeError(f"reading the graph's nodes failed: cudaError "
+                           f"{err}")
+    return kernels.value, cooperative.value
 
 
 def _launch_chain(library: str, x: torch.Tensor, packed: PackedCNN,

@@ -13,6 +13,7 @@ and the DeepInversion generator wait for later slices.
 from __future__ import annotations
 
 import os
+from functools import lru_cache
 
 import torch
 
@@ -24,6 +25,15 @@ from .base import Parameterization, register_model
 from .common import lev_from_nhwc, nhwc_from_lev, read_scalers
 
 __all__ = ["CGANRegression"]
+
+
+@lru_cache(maxsize=4)
+def _seed0_draws(shape, device, M: int) -> tuple:
+    """M standard normal draws of `shape`, in turn, from a generator seeded
+    with 0 on `device`."""
+    generator = torch.Generator(device=device).manual_seed(0)
+    return tuple(torch.randn(shape, generator=generator, device=device)
+                 for _ in range(M))
 
 
 @register_model
@@ -115,15 +125,20 @@ class CGANRegression(Parameterization):
     @torch.no_grad()
     def predict_mean_snapshot(self, q, M: int = 100,
                               generator: torch.Generator | None = None):
-        """Ensemble mean of M generator samples (deterministic sampling)."""
-        if generator is None:
-            generator = torch.Generator(device=q.device).manual_seed(0)
+        """Ensemble mean of M generator samples (deterministic sampling).
+        Without a generator, the M draws of a generator seeded with 0, the
+        same at every call, drawn once (`_seed0_draws`), so that a captured
+        step draws nothing."""
         batched = q.ndim == 4
         x = nhwc_from_lev(q).to(torch.float32) / self._x_std
+        shape = x.shape[:-1] + (self.n_latent,)
+        if generator is None:
+            zs = _seed0_draws(shape, x.device, M)
+        else:
+            zs = (torch.randn(shape, generator=generator, device=x.device)
+                  for _ in range(M))
         total = torch.zeros_like(x)
-        for _ in range(M):
-            z = torch.randn(x.shape[:-1] + (self.n_latent,),
-                            generator=generator, device=x.device)
+        for z in zs:
             total = total + self.generate(x, z)
         y = total / M * self._y_std
         return lev_from_nhwc(y, batched=batched).to(q.dtype)

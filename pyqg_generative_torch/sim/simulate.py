@@ -1,13 +1,16 @@
 """Online simulation drivers.
 
-Twin of the online half of `pyqg_generative_tpu/sim/simulate.py` (:41-284).
+Twin of the online half of `pyqg_generative_tpu/sim/simulate.py` (:41-332).
 One step inverts PV, samples the closure's forcing, forms the spectral RHS,
 accumulates the gated diagnostics and applies the filtered AB3 update, as in
 the twin's `make_online_step`. Where JAX scans and vmaps one fused program,
-here members are a leading batch axis and the steps a Python loop: the
-diagnostics gate and the AB3 start are host branches on the shared step
-counter, so the loop never waits on the device. Forcing-data generation
-waits for a later slice.
+here members are a leading batch axis and the steps a loop: the diagnostics
+gate and the AB3 start are host branches on the shared step counter, so the
+loop never waits on the device. On a card every driver advances its steps
+through `graph.GraphedStep`, which replays each branch's step from a
+captured CUDA graph (the twin's one program); on the CPU, which the caller
+asks for, the eager step runs. Forcing-data generation waits for a later
+slice.
 """
 from __future__ import annotations
 
@@ -21,10 +24,12 @@ from ..qg import core, diagnostics
 from ..qg.grid import make_grid
 from ..qg.params import ANDREW_1000_STEPS, DAY, QGParams
 from ..utils import xrlite as xr
+from . import graph
 from .stochastic import init_sampler, sample_forcing
 
-__all__ = ["run_ensemble", "set_initial_condition", "make_online_step",
-           "init_run_carry"]
+__all__ = ["run_simulation", "run_ensemble", "run_ensemble_segmented",
+           "set_initial_condition", "make_online_step", "init_run_carry",
+           "advance_run", "run_with_snapshots"]
 
 
 def set_initial_condition(p: QGParams, key: int = 0) -> torch.Tensor:
@@ -110,10 +115,13 @@ def init_run_carry(p: QGParams, q0, generator, model=None,
 def _advance_program(p: QGParams, model, sampling, nsteps,
                      steps_per_snap: int, n_snaps: int, with_diags: bool):
     """(carry) -> (carry, snapshots (..., n_snaps, 2, ny, nx), diagnostic
-    means): a resumable segment of a simulation."""
-    step = make_online_step(p, model, sampling, nsteps, with_diags)
-
+    means): a resumable segment of a simulation, graphed on a CUDA carry.
+    The tensors of the carry passed in are left as they were."""
     def advance(carry):
+        if carry[0].qh.is_cuda:
+            step = graph.GraphedStep(p, model, sampling, nsteps, with_diags)
+        else:
+            step = make_online_step(p, model, sampling, nsteps, with_diags)
         snaps = []
         for _ in range(n_snaps):
             for _ in range(steps_per_snap):
@@ -167,6 +175,102 @@ def _build_dataset(snaps: dict, diags: dict, p: QGParams,
     return ds
 
 
+def _snap_counts(p: QGParams, sampling_freq: float) -> tuple[int, int]:
+    """(steps a snapshot, snapshots in p.tmax)."""
+    steps_per_snap = max(1, int(round(sampling_freq / p.dt)))
+    return steps_per_snap, max(1, int(p.tmax // (steps_per_snap * p.dt)))
+
+
+def _to_numpy(tensors: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in tensors.items()}
+
+
+def _ensemble_start(p: QGParams, n_ens: int, q_init, key: int, device):
+    """(q0 (n_ens, 2, ny, nx), the noise generator) of an ensemble: member
+    j starts from `set_initial_condition(p, key*1000 + j)` unless `q_init`
+    is given, and one generator seeded with `key` draws every member's
+    noise."""
+    rdt = core.dtypes(p)[0]
+    if q_init is not None:
+        q0 = torch.as_tensor(q_init, dtype=rdt)
+        if q0.ndim == 3:
+            q0 = q0.expand((n_ens,) + tuple(q0.shape))
+    else:
+        q0 = torch.stack([set_initial_condition(p, key * 1000 + j)
+                          for j in range(n_ens)])
+    return q0, torch.Generator(device=device).manual_seed(int(key))
+
+
+def advance_run(carry, pyqg_params: QGParams, parameterization=None,
+                n_snaps: int = 1, sampling_freq: float = ANDREW_1000_STEPS,
+                with_diags: bool = True, device=None):
+    """Advance a run carry (`init_run_carry`) by `n_snaps` snapshot
+    intervals. Returns (carry, Dataset segment) with the time coordinate
+    shifted by the carry's starting step, and a leading `run` dim where the
+    carry has a member axis; the carry passed in keeps its tensors. The
+    carry must lie on `device` (None means CUDA)."""
+    p = pyqg_params
+    device = resolve_device(device)
+    on = carry[0].qh.device
+    if on.type != device.type or device.index not in (None, on.index):
+        raise ValueError(f"the carry lies on {on}, not on {device}")
+    model, sampling, nsteps = _normalize_parameterization(parameterization)
+    steps_per_snap, _ = _snap_counts(p, sampling_freq)
+    tc0 = carry[0].tc
+    advance = _advance_program(p, model, sampling, nsteps, steps_per_snap,
+                               n_snaps, with_diags)
+    carry, snaps, diags = advance(carry)
+    ds = _build_dataset(_to_numpy(snaps), _to_numpy(diags), p,
+                        steps_per_snap * p.dt, n_snaps,
+                        run_dim=carry[0].qh.ndim > 3)
+    # shift the time coordinate by the carry's starting step
+    times = ds["time"].values + tc0 * p.dt / DAY
+    for k in list(ds.keys()):
+        if "time" in ds[k].coords:
+            ds[k].coords["time"] = times
+    ds["time"] = xr.DataArray(times, ("time",), attrs={"units": "days"})
+    return carry, ds
+
+
+def run_with_snapshots(pyqg_params: QGParams, parameterization=None,
+                       q_init=None, sampling_freq: float = ANDREW_1000_STEPS,
+                       key: int = 0, with_diags: bool = True, device=None):
+    """Generator of (t seconds, Dataset of the newest snapshot and the
+    running diagnostics), one per snapshot interval: pyqg's
+    `run_with_snapshots` loop, advanced by `advance_run`. One member, no
+    batch axis; its noise generator is seeded with `key`."""
+    p = pyqg_params
+    device = resolve_device(device)
+    model, _, _ = _normalize_parameterization(parameterization)
+    q0 = q_init if q_init is not None else set_initial_condition(p, key)
+    carry = init_run_carry(p, q0, key, model, with_diags, device)
+    for _ in range(_snap_counts(p, sampling_freq)[1]):
+        carry, ds = advance_run(carry, p, parameterization, n_snaps=1,
+                                sampling_freq=sampling_freq,
+                                with_diags=with_diags, device=device)
+        yield float(carry[0].t), ds
+
+
+def run_simulation(pyqg_params: QGParams, parameterization=None,
+                   q_init=None, sampling_freq: float = ANDREW_1000_STEPS,
+                   key: int = 0, with_diags: bool = True,
+                   device=None) -> xr.Dataset:
+    """One online member, no batch axis: snapshots (time, lev, y, x) and
+    diagnostics (lev, l, k) or (l, k). It starts from
+    `set_initial_condition(p, key)` unless `q_init` is given, and its noise
+    generator is seeded with `key`. `device=None` means CUDA."""
+    p = pyqg_params
+    device = resolve_device(device)
+    model, sampling, nsteps = _normalize_parameterization(parameterization)
+    steps_per_snap, n_snaps = _snap_counts(p, sampling_freq)
+    q0 = q_init if q_init is not None else set_initial_condition(p, key)
+    program = _simulate_program(p, model, sampling, nsteps, steps_per_snap,
+                                n_snaps, with_diags)
+    snaps, diags = program(q0, key, device)
+    return _build_dataset(_to_numpy(snaps), _to_numpy(diags), p,
+                          steps_per_snap * p.dt, n_snaps)
+
+
 def run_ensemble(pyqg_params: QGParams, parameterization=None,
                  n_ens: int = 10, q_init=None,
                  sampling_freq: float = ANDREW_1000_STEPS,
@@ -179,20 +283,40 @@ def run_ensemble(pyqg_params: QGParams, parameterization=None,
     p = pyqg_params
     device = resolve_device(device)
     model, sampling, nsteps = _normalize_parameterization(parameterization)
-    steps_per_snap = max(1, int(round(sampling_freq / p.dt)))
-    n_snaps = max(1, int(p.tmax // (steps_per_snap * p.dt)))
-    rdt = core.dtypes(p)[0]
-    if q_init is not None:
-        q0 = torch.as_tensor(q_init, dtype=rdt)
-        if q0.ndim == 3:
-            q0 = q0.expand((n_ens,) + tuple(q0.shape))
-    else:
-        q0 = torch.stack([set_initial_condition(p, key * 1000 + j)
-                          for j in range(n_ens)])
-    generator = torch.Generator(device=device).manual_seed(int(key))
+    steps_per_snap, n_snaps = _snap_counts(p, sampling_freq)
+    q0, generator = _ensemble_start(p, n_ens, q_init, key, device)
     program = _simulate_program(p, model, sampling, nsteps, steps_per_snap,
                                 n_snaps, with_diags)
     snaps, diags = program(q0, generator, device)
-    return _build_dataset({k: v.cpu().numpy() for k, v in snaps.items()},
-                          {k: v.cpu().numpy() for k, v in diags.items()},
-                          p, steps_per_snap * p.dt, n_snaps, run_dim=True)
+    return _build_dataset(_to_numpy(snaps), _to_numpy(diags), p,
+                          steps_per_snap * p.dt, n_snaps, run_dim=True)
+
+
+def run_ensemble_segmented(pyqg_params: QGParams, parameterization=None,
+                           n_ens: int = 10, q_init=None,
+                           sampling_freq: float = ANDREW_1000_STEPS,
+                           key: int = 0, with_diags: bool = True,
+                           n_segments: int = 4,
+                           device=None) -> xr.Dataset:
+    """`run_ensemble` split into `n_segments` advances of one carry, with a
+    host synchronisation (the snapshots' copy to the host) between them;
+    equal to `run_ensemble`, since the carry is the whole state."""
+    p = pyqg_params
+    device = resolve_device(device)
+    model, sampling, nsteps = _normalize_parameterization(parameterization)
+    steps_per_snap, n_snaps = _snap_counts(p, sampling_freq)
+    q0, generator = _ensemble_start(p, n_ens, q_init, key, device)
+    carry = init_run_carry(p, q0, generator, model, with_diags, device)
+    bounds = np.linspace(0, n_snaps, n_segments + 1).astype(int)
+    seg_snaps, diags = [], {}
+    for m in np.diff(bounds):
+        if m == 0:
+            continue
+        advance = _advance_program(p, model, sampling, nsteps,
+                                   steps_per_snap, int(m), with_diags)
+        carry, snaps, diags = advance(carry)
+        seg_snaps.append(_to_numpy(snaps))
+    merged = {k: np.concatenate([s[k] for s in seg_snaps], axis=1)
+              for k in seg_snaps[0]}
+    return _build_dataset(merged, _to_numpy(diags), p,
+                          steps_per_snap * p.dt, n_snaps, run_dim=True)

@@ -24,7 +24,7 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["SamplerState", "init_sampler", "sample_forcing"]
+__all__ = ["SamplerState", "init_sampler", "sample_forcing", "redraws"]
 
 
 @dataclasses.dataclass
@@ -57,6 +57,13 @@ def _draw(sstate: SamplerState) -> torch.Tensor:
                        dtype=noise.dtype, device=noise.device)
 
 
+def redraws(sstate: SamplerState, sampling: str, nsteps: int) -> bool:
+    """The host branch of this step: whether the constant sampler draws new
+    noise and recomputes the forcing (the twin's `lax.cond`). The other
+    samplers do the same work every step."""
+    return sampling == "constant" and sstate.counter % nsteps == 0
+
+
 def sample_forcing(model, compute: Callable, sstate: SamplerState,
                    sampling: str, nsteps: int,
                    mean_fn: Callable | None = None):
@@ -78,7 +85,7 @@ def sample_forcing(model, compute: Callable, sstate: SamplerState,
                                       counter=sstate.counter + 1)
 
     if sampling == "constant":
-        if sstate.counter % nsteps == 0:
+        if redraws(sstate, sampling, nsteps):
             noise = _draw(sstate)
             f = compute(noise).to(sstate.forcing.dtype)
         else:

@@ -21,7 +21,9 @@ from pyqg_generative_torch.models import CGANRegression, CVAERegression, \
     MeanVarModel, Parameterization, load_model
 from pyqg_generative_torch.qg import core
 from pyqg_generative_torch.qg.params import QGParams
-from pyqg_generative_torch.sim import run_ensemble
+from pyqg_generative_torch.sim import advance_run, graph, \
+    init_run_carry, make_online_step, run_ensemble, \
+    run_ensemble_segmented, run_simulation, run_with_snapshots, simulate
 from pyqg_generative_torch.sim.stochastic import init_sampler
 
 torch.set_num_threads(1)
@@ -47,7 +49,7 @@ def _imported_roots(path):
 
 def test_no_jax_imports():
     files = sorted((ROOT / "pyqg_generative_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
     assert len(files) > 15
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
@@ -56,7 +58,11 @@ def test_no_jax_imports():
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
     """device=None means CUDA: without it every entry point raises rather
-    than run on the CPU unasked."""
+    than run on the CPU unasked, the port's bench among them."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    bench_torch = importlib.import_module("bench_torch")
+    carry = init_run_carry(QGParams(nx=16), np.zeros((2, 16, 16)), 0,
+                           device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     p = QGParams(nx=16, tmax=2 * 14400.0)
     folded = {"params": {f"Conv_{i}": {"kernel": np.ones((3, 3, 2, 2)),
@@ -67,6 +73,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
              lambda: MeanVarModel(folder=GZ),
              lambda: CVAERegression(folder=VAE),
              lambda: run_ensemble(p, n_ens=1, sampling_freq=14400.0),
+             lambda: run_ensemble_segmented(p, n_ens=1,
+                                            sampling_freq=14400.0),
+             lambda: run_simulation(p, sampling_freq=14400.0),
+             lambda: next(run_with_snapshots(p, sampling_freq=14400.0)),
+             lambda: advance_run(carry, p, sampling_freq=14400.0),
+             lambda: bench_torch.main(["--nx", "16", "--members", "1",
+                                       "--steps", "2", "--snap-every", "1"]),
              lambda: core.init_state(np.zeros((2, 16, 16)), p),
              lambda: init_sampler(0, Parameterization(), 16, 16,
                                   torch.float32),
@@ -575,3 +588,103 @@ def test_k3_matches_plain_on_card():
     assert torch.equal(words, fused_conv.bitcast_pack_words_plain(x))
     fused_conv.bitcast_packing.cache_clear()
     assert fused_conv.bitcast_packing("cuda") == "adj_low"
+
+
+def _eager_dataset(p, closure, n_ens, steps_per_snap, n_snaps, key=0):
+    """`run_ensemble`'s run, from the same start and generator seed, by the
+    eager step loop: (Dataset, final carry)."""
+    model, sampling, nsteps = closure["self"], closure["sampling"], \
+        closure["nsteps"]
+    q0 = torch.stack([simulate.set_initial_condition(p, key * 1000 + j)
+                      for j in range(n_ens)])
+    carry = init_run_carry(p, q0, key, model, device="cuda")
+    step = make_online_step(p, model, sampling, nsteps)
+    snaps = []
+    for _ in range(n_snaps):
+        for _ in range(steps_per_snap):
+            carry = step(carry)
+        snaps.append(simulate._snapshot(carry[0], p))
+    snaps = {k: torch.stack([s[k] for s in snaps], 1).cpu().numpy()
+             for k in snaps[0]}
+    diags = {k: v.cpu().numpy() for k, v in
+             simulate.diagnostics.finalize(carry[2]).items()}
+    return simulate._build_dataset(snaps, diags, p, steps_per_snap * p.dt,
+                                   n_snaps, run_dim=True), carry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,sampling,nsteps", [
+    ("gan_k1", "AR1", -1), ("vae_k2", "AR1", -1),
+    ("gan_k1", "constant", 3), ("gan_k1", "deterministic", 1)])
+def test_graphed_run_equals_eager_loop_on_card(path, sampling, nsteps):
+    """`run_ensemble` on the card replays captured graphs of its steady
+    steps, with the path's chain kernel inside them (K1 for the GAN, K2's
+    cooperative launch for the VAE), and equals the eager step loop bitwise:
+    2 members x 32^2, 20 steps, so that the AB3 start, both diagnostics
+    graphs and replays of each are crossed. With frozen noise (AR1, nsteps
+    < 0) a wrapper counts one call a step run eagerly or captured; the
+    constant sampler's draw and the deterministic sampler's fixed draws
+    (the GAN's unfolded generator) are host branches and cached tensors
+    that the graphs hold too."""
+    _need_card()
+    folder, kw, count = {"gan_k1": (FOLDER, {}, "launches"),
+                         "vae_k2": (VAE, VAE_PATH, "launches_packed")}[path]
+    model = load_model(folder, device="cuda", **kw)
+    closure = {"self": model, "sampling": sampling, "nsteps": nsteps}
+    p = QGParams(nx=32, dt=14400.0, tavestart=0.0, tmax=20 * 14400.0)
+    ref, _ = _eager_dataset(p, closure, 2, 10, 2)
+    before = (getattr(fused_conv, count), graph.eager_steps,
+              graph.captured_steps, graph.replayed_steps)
+    ds = run_ensemble(p, closure, n_ens=2, sampling_freq=10 * 14400.0,
+                      device="cuda")
+    calls, eager, captured, replayed = (
+        a - b for a, b in zip((getattr(fused_conv, count), graph.eager_steps,
+                               graph.captured_steps, graph.replayed_steps),
+                              before))
+    assert eager + replayed == 20 and captured >= 2 and replayed > eager
+    if sampling == "AR1":
+        assert calls == eager + captured
+    assert sorted(ds.keys()) == sorted(ref.keys())
+    for k in ref.keys():
+        np.testing.assert_array_equal(ds[k].values, ref[k].values,
+                                      err_msg=k)
+
+
+@pytest.mark.cuda
+def test_k2_counters_exist_before_capture_on_card(monkeypatch):
+    """A graphed step on a new stream has K2's counter buffer for that
+    stream allocated by its eager warm-up, never under capture; and a K2
+    launch that would allocate it under capture raises."""
+    _need_card()
+    model = load_model(VAE, device="cuda", **VAE_PATH)
+    allocations = []
+    real = fused_conv._k2_counter_buffer
+
+    def spy(device, stream):
+        if (device.index, stream) not in fused_conv._k2_counters:
+            allocations.append(torch.cuda.is_current_stream_capturing())
+        return real(device, stream)
+
+    monkeypatch.setattr(fused_conv, "_k2_counter_buffer", spy)
+    p = QGParams(nx=32, dt=14400.0, tavestart=0.0)
+    step = graph.GraphedStep(p, model, "AR1", 1)
+    carry = init_run_carry(p, np.zeros((2, 2, 32, 32)), 0, model,
+                           device="cuda")
+    captured = graph.captured_steps
+    for _ in range(8):
+        carry = step(carry)
+    torch.cuda.synchronize()
+    assert graph.captured_steps > captured
+    assert True not in allocations
+    assert (carry[0].qh.device.index, step.stream.cuda_stream) \
+        in fused_conv._k2_counters
+    monkeypatch.setattr(fused_conv, "_k2_counter_buffer", real)
+    packed = model._online_dec().packed
+    x = torch.zeros((2, 32, 32, 128), device="cuda")
+    stream = torch.cuda.Stream()
+    while (x.device.index, stream.cuda_stream) in fused_conv._k2_counters:
+        stream = torch.cuda.Stream()
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="under graph capture"):
+        with torch.cuda.graph(g, stream=stream):
+            fused_conv.packed_cnn_forward(x, packed)
