@@ -80,9 +80,27 @@ Phases, in order; any failure raises and the exit code is nonzero:
    per-layer check and the chain equals its layers composed. Its 10-step
    distance from the same path with the plain version patched in, and from
    the CPU, are printed; the latter is held to a coarse bound only (see
-   BF16_COARSE).
-It prints a JSON line of the step profiles, one of kernel measurements, then
-the nvidia-smi line, and last {"ok": true, "device": {...}}. In the kernel
+   BF16_COARSE);
+9. every closure of the JAX package, each on the card at full width through
+   run_ensemble (10 members, AR1, diagnostics on, ZOO_STEPS steps graphed,
+   dt = 14400 s): the GAN r4_eddy_gan_64_op1_s0 after use_optimal_epoch()
+   (K1) and eddy_gan_48_op1_stable after use_stable_epoch() (K1, 48^2); the
+   VAE r4_eddy_vae_64_op1_s0 after use_optimal_epoch() with "packed" (K2); a
+   div=True GAN (K1) and a div=True VAE (K2) on seeded weights at the
+   published widths 128/64/32x5, their chains 4 wide; a DeepInversion GAN,
+   OLS and the bottleneck VAE on seeded weights (cuDNN, as the twin's XLA);
+   the ANN ann_eddy_jet; and every physical closure by name. For each: q
+   finite, steps replayed, the kernel's calls one a step run eagerly or
+   captured where it has one, and 2 members x 10 frozen-noise steps against
+   the same closure on the CPU to F32_BOUND; a second run gives its
+   member-steps/s, a reading. Before them: K1 and K2 on the div chain (the
+   4-wide last layer runs the narrow tile, as the 2-wide one does) against
+   their plain versions and by the per-layer check; and a checkpoint switch
+   on the card, which changes the forcing, and after which a GraphedStep
+   held across it captures anew.
+It prints a JSON line of the step profiles, one of phase 9's readings, one
+of kernel measurements, then the nvidia-smi line, and last {"ok": true,
+"device": {...}}. In the kernel
 line, launches is the path's wrapper calls in phase 4's graphed runs, and
 graph_replays the replayed steps there, each of which launches the kernel
 as an eager step does; max_abs_err is max|kernel - plain| at the path's
@@ -132,6 +150,13 @@ DRIVER_STEPS, DRIVER_SNAP = 24, 6  # phase 7
 # inputs, and its distance from the CPU only to BF16_COARSE times the CPU's
 # own bf16-versus-float32 distance, which catches a blow-up and no more.
 F32_BOUND, BF16_COARSE = 2e-5, 2.0
+# phase 9: steps of each closure's run, its snapshot interval, the folders
+# of the closures on seeded weights (under an ignored build directory), and
+# the physical closures' arguments beside their defaults (Laplace's default
+# viscosity is 0)
+ZOO_STEPS, ZOO_SNAP = 100, 50
+ZOO_DIR = ROOT / "build" / "phase9_models"
+PHYSICAL_ARGS = {"Laplace": {"nu": 100.0}}
 COUNTS = ("launches", "launches_bf16", "launches_packed", "launches_probe")
 LIBRARIES = ("fused_conv", "packed_chain", "bitcast_probe")
 # peak rates and memory rate of one H100 SXM (NVIDIA data sheet, 700 W):
@@ -890,6 +915,208 @@ def card_vs_reference(name, model, p, fused_conv):
     return diff
 
 
+def seeded_folder(name, cls_name, modules, **args):
+    """A model folder in the twin's contract, written by the port's
+    save_variables and save_model_args: seeded weights of `modules` (file
+    name -> module, ml.weights.seeded_variables) and eddy_gan_64's
+    scalers."""
+    from pyqg_generative_torch.ml.weights import seeded_variables
+    from pyqg_generative_torch.models import save_model_args, save_variables
+    path = ZOO_DIR / name
+    path.mkdir(parents=True, exist_ok=True)
+    for i, (fname, module) in enumerate(modules.items()):
+        save_variables(seeded_variables(module, 90 + i),
+                       str(path / f"{fname}.msgpack"))
+    for s in ("x_scale.json", "y_scale.json"):
+        (path / s).write_text((pathlib.Path(FOLDER) / s).read_text())
+    save_model_args(cls_name, folder=str(path), **args)
+    return str(path)
+
+
+def zoo():
+    """Phase 9's closures: name -> (make(device) -> model, the launch count
+    its chain kernel adds to or None, grid size)."""
+    from pyqg_generative_torch.ml import nets
+    from pyqg_generative_torch.models import load_model, physical
+
+    def switched(folder, switch, **kw):
+        def make(dev):
+            model = load_model(str(MODELS / folder), device=dev, **kw)
+            if not getattr(model, switch)():
+                raise AssertionError(f"{folder}: {switch}() found no file")
+            return model
+        return make
+
+    def saved(folder, **kw):
+        return lambda dev: load_model(folder, device=dev, **kw)
+
+    hidden = list(nets.HIDDEN)
+    out = {
+        "gan_opt": (switched("r4_eddy_gan_64_op1_s0", "use_optimal_epoch"),
+                    "launches", NX),
+        "gan_stable": (switched("eddy_gan_48_op1_stable",
+                                "use_stable_epoch"), "launches", 48),
+        "vae_opt": (switched("r4_eddy_vae_64_op1_s0", "use_optimal_epoch",
+                             online_variant="packed"), "launches_packed",
+                    NX),
+        "div_gan": (saved(seeded_folder(
+            "div_gan", "CGANRegression",
+            {"G": nets.AndrewCNN(4, 2, div=True)}, regression="None",
+            nx=NX, generator="Andrew", div=True, hidden_channels=hidden)),
+            "launches", NX),
+        "div_vae": (saved(seeded_folder(
+            "div_vae", "CVAERegression",
+            {"decoder": nets.AndrewCNN(4, 2, div=True)}, regression="None",
+            div=True, decoder_var="adaptive", hidden_channels=hidden),
+            online_variant="packed"), "launches_packed", NX),
+        "deep_inversion": (saved(seeded_folder(
+            "deep_inversion", "CGANRegression",
+            {"G": nets.DeepInversionGenerator(4, 2)}, regression="None",
+            nx=NX, generator="DeepInversion", div=False,
+            hidden_channels=hidden)), None, NX),
+        "ols": (saved(seeded_folder(
+            "ols", "OLSModel", {"net": nets.AndrewCNN(2, 2)}, div=False,
+            batch_norm=True, bias=True, final_activation="None",
+            hidden_channels=hidden)), None, NX),
+        "bottleneck": (saved(seeded_folder(
+            "bottleneck", "CVAEBottleneck",
+            {"deep_decoder": nets.Upsampling(100, 4, 2, nx=NX),
+             "decoder": nets.AndrewCNN(4, 2),
+             "net_mean": nets.AndrewCNN(2, 2)}, regression="full_loss",
+            nx=NX, div=False, decoder_var="adaptive", deep_latent=100)),
+            None, NX),
+        "ann_eddy_jet": (saved(str(MODELS / "ann_eddy_jet")), None, NX),
+    }
+    for name in physical.__all__:
+        if name != "PhysicalParameterization":
+            out[name] = (lambda dev, n=name: getattr(physical, n)(
+                device=dev, **PHYSICAL_ARGS.get(n, {})), None, NX)
+    return out
+
+
+def div_chain_on_kernels(fused_conv, make):
+    """A div=True chain (Conv_1..Conv_7, the last 4 wide) at 10 x 64^2
+    through K1 and K2 against their plain versions (rtol 2e-4 / atol
+    2e-5*max) and by the per-layer check."""
+    from pyqg_generative_torch.ml.nets import fold_batchnorm
+    folded = fold_batchnorm(make("cpu").vars_G)
+    packed, x, err1 = check_k1(fused_conv, folded, MEMBERS, NX, seed=20)
+    if packed.meta[-1][2] != 4:
+        raise AssertionError(f"the div chain ends {packed.meta[-1]}")
+    check_layers(fused_conv, "K1", packed, x, "the div chain")
+    packed, x, err2 = check_k2(fused_conv, folded, MEMBERS, NX, seed=21)
+    check_layers(fused_conv, "K2", packed, x, "the div chain")
+    return {"k1_max_abs_err": err1, "k2_max_abs_err": err2}
+
+
+def switch_on_card(graph, p):
+    """A checkpoint switch on the card: the forcing of the same q and noise
+    changes, and a GraphedStep held across the switch captures anew."""
+    from pyqg_generative_torch.models import load_model
+    from pyqg_generative_torch.qg import core
+    from pyqg_generative_torch.sim import init_run_carry
+    model = load_model(str(MODELS / "r4_eddy_gan_64_op1_s0"), device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    q = 1e-5 * torch.randn((2, 2, NX, NX), generator=gen, device=DEV)
+    z = torch.randn((2, NX, NX, 2), generator=gen, device=DEV)
+    before = model(q, z)
+    q0 = np.stack([core.default_initial_q(
+        p, rng=np.random.default_rng(j)).numpy() for j in range(2)])
+    step = graph.GraphedStep(p, model, "AR1", -1)
+    carry = init_run_carry(p, q0, 0, model, device=DEV)
+    for _ in range(8):
+        carry = step(carry)
+    captured = graph.captured_steps
+    if not model.use_optimal_epoch():
+        raise AssertionError("no G_opt.msgpack")
+    after = model(q, z)
+    for _ in range(8):
+        carry = step(carry)
+    torch.cuda.synchronize()
+    change = float((after - before).abs().max() / before.abs().max())
+    recaptured = graph.captured_steps - captured
+    log(f"checkpoint switch on the card: the forcing changes by {change:.3e} "
+        f"of max|forcing|; the GraphedStep held across it captured "
+        f"{recaptured} graph(s) anew")
+    if not change > 1e-3 or recaptured < 1 or \
+            not torch.isfinite(carry[0].qh).all():
+        raise AssertionError("the checkpoint switch did not take on the card")
+    return {"forcing_change": change, "recaptured": recaptured}
+
+
+def every_closure(fused_conv, graph, p, smi):
+    """Phase 9 (see the module's docstring). Returns its readings."""
+    from pyqg_generative_torch.qg import core
+    from pyqg_generative_torch.sim import init_run_carry, make_online_step, \
+        run_ensemble
+    closures = zoo()
+    readings = {"div_chain": div_chain_on_kernels(
+        fused_conv, closures["div_gan"][0])}
+    readings["switch"] = switch_on_card(graph, p)
+    for name, (make, count, nx) in closures.items():
+        pz = p.replace(nx=nx)
+        model = make(DEV)
+        closure = {"self": model, "sampling": "AR1", "nsteps": 1}
+
+        def run():
+            return run_ensemble(pz.replace(tmax=ZOO_STEPS * pz.dt), closure,
+                                n_ens=MEMBERS,
+                                sampling_freq=ZOO_SNAP * pz.dt, device=DEV)
+
+        set_counts(fused_conv, graph)
+        ds = run()
+        counts, steps = read_counts(fused_conv, graph)
+        want = {c: 0 for c in COUNTS}
+        if count:
+            want[count] = steps["eager_steps"] + steps["captured_steps"]
+        q = ds["q"].values
+        if counts != want or steps["replayed_steps"] < 1 or \
+                steps["eager_steps"] + steps["replayed_steps"] != ZOO_STEPS:
+            raise AssertionError(f"{name}: launch counts {counts}, graph "
+                                 f"counts {steps}; expected {want} and "
+                                 "steps replayed")
+        if q.shape != (MEMBERS, ZOO_STEPS // ZOO_SNAP, 2, nx, nx) or \
+                not np.isfinite(q).all():
+            raise AssertionError(f"{name}: q of shape {q.shape} or "
+                                 "not finite")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        rate = MEMBERS * ZOO_STEPS / (time.perf_counter() - t0)
+
+        # 2 members x 10 frozen-noise steps, card against CPU
+        pq = pz.replace(taveint=2 * pz.dt)
+        q0 = np.stack([core.default_initial_q(
+            pq, rng=np.random.default_rng(j)).numpy() for j in range(2)])
+        cpu_model = make("cpu")
+        noise = cpu_model.generate_latent_noise(
+            torch.Generator().manual_seed(3), nx, nx, (2,))
+
+        def final_q(m, dev):
+            step = make_online_step(pq, m, "AR1", -1)
+            carry = init_run_carry(pq, q0, 0, m, device=dev)
+            carry[1].noise = noise.to(dev)
+            for _ in range(10):
+                carry = step(carry)
+            return core.fields(carry[0].qh, pq).q.cpu().numpy()
+
+        card, cpu = final_q(model, DEV), final_q(cpu_model, "cpu")
+        scale = float(np.abs(cpu).max())
+        diff = float(np.abs(card - cpu).max()) / scale
+        readings[name] = {"member_steps_per_s": rate, "card_vs_cpu": diff,
+                          "graph_counts": steps, "launches": counts.get(
+                              count) if count else None, "nx": nx}
+        log(f"phase 9, {name} at {MEMBERS} x {nx}^2, {ZOO_STEPS} steps: "
+            f"launch counts {counts}, graph counts {steps}; "
+            f"{rate:.1f} member-steps/s (a reading, on {smi}); 2 members x "
+            f"10 frozen-noise steps, card vs CPU max|diff| / max|q| "
+            f"{diff:.3e} (bound {F32_BOUND:.0e})")
+        if not diff <= F32_BOUND:
+            raise AssertionError(f"{name}: the card and the CPU disagree")
+    return readings
+
+
 def _group(name: str) -> str:
     low = name.lower()
     if "conv_fma_kernel" in name:
@@ -1084,7 +1311,12 @@ def main():
     for name in PATHS:
         profiles[name]["card_vs_reference"] = card_vs_reference(
             name, models[name], p, fused_conv)
+    # 9. every closure
+    t0 = time.perf_counter()
+    zoo_readings = every_closure(fused_conv, graph, p, smi)
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"step_profile": profiles}))
+    print(json.dumps({"every_closure": zoo_readings, "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,26 @@
-"""The closure CNN as a PyTorch module, and its BatchNorm folding.
+"""The closures' networks as PyTorch modules, and the BatchNorm folding.
 
-Twin of `AndrewCNN`, `VarCNN` and `fold_batchnorm` in
-`pyqg_generative_tpu/ml/nets.py`:
-the same 8-layer circular CNN (kernels [5,5,3x6], channels [128,64,32x5]),
-conv -> ReLU -> BatchNorm after each hidden conv. The module computes in
-PyTorch's NCHW but takes and returns NHWC, the twin's layout, so that the two
-compare like with like. Weights cross over from the flax tree with
-`ml.weights.params_from_jax`.
+Twin of `pyqg_generative_tpu/ml/nets.py`: `AndrewCNN` (the 8-layer circular
+CNN, kernels [5,5,3x6], channels [128,64,32x5], conv -> ReLU -> BatchNorm
+after each hidden conv, with the `div=True` spectral-divergence head),
+`VarCNN`, the stencil MLP `ANN`, `ResUnit` and the U-Net
+`DeepInversionGenerator`, and the bottleneck VAE's `Downsampling` and
+`Upsampling`. The modules compute in PyTorch's NCHW but take and return NHWC
+(a flat (B, features) for the dense ends), the twin's layout, so that the
+two compare like with like.
+
+Every submodule carries its flax name (`Conv_0`, `BatchNorm_3`,
+`ConvTranspose_1`, `Dense_0`, `ResUnit_5`), so that a state dict's keys are
+the flax tree's paths and `ml.weights.params_from_jax` / `params_to_jax`
+carry weights across by name alone. flax's padding conventions:
+`padding="CIRCULAR"` wraps (k-1)//2 and k//2 cells and convolves "valid"
+(also at stride 2); `ConvTranspose` with the default `transpose_kernel=False`
+is `conv_transpose2d` on the kernel flipped in both spatial axes, with no
+padding, cropped to stride x the input ("SAME" output size).
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Sequence
 
 import numpy as np
@@ -17,23 +28,77 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["AndrewCNN", "VarCNN", "fold_batchnorm", "circular_conv2d"]
+from ..qg.grid import make_grid
+
+__all__ = ["AndrewCNN", "VarCNN", "ANN", "ResUnit", "DeepInversionGenerator",
+           "Downsampling", "Upsampling", "fold_batchnorm", "circular_conv2d",
+           "spectral_divergence", "divergence_head"]
 
 HIDDEN = (128, 64, 32, 32, 32, 32, 32)
+BN_EPS = 1e-5  # flax BatchNorm's epsilon in the twin (`_norm`)
 
 
 def circular_conv2d(x: torch.Tensor, w: torch.Tensor,
-                    b: torch.Tensor | None = None) -> torch.Tensor:
-    """'Same'-size circular convolution of NCHW `x` with an OIHW kernel of
-    odd size (flax `padding="CIRCULAR"`)."""
-    r = w.shape[-1] // 2
-    return F.conv2d(F.pad(x, (r, r, r, r), mode="circular"), w, b)
+                    b: torch.Tensor | None = None,
+                    stride: int = 1) -> torch.Tensor:
+    """Circular convolution of NCHW `x` with an OIHW kernel (flax
+    `padding="CIRCULAR"`): (k-1)//2 cells wrapped before, k//2 after, then a
+    valid convolution at `stride`."""
+    k = w.shape[-1]
+    lo, hi = (k - 1) // 2, k // 2
+    if k > 1:
+        x = F.pad(x, (lo, hi, lo, hi), mode="circular")
+    return F.conv2d(x, w, b, stride=stride)
+
+
+def _conv_transpose_same(x: torch.Tensor, layer: nn.ConvTranspose2d,
+                         stride: int) -> torch.Tensor:
+    """flax `ConvTranspose(strides=stride, padding="SAME")` on NCHW x: the
+    torch transposed convolution (whose weight holds the flax kernel
+    flipped), cropped to stride x the input."""
+    H, W = x.shape[-2] * stride, x.shape[-1] * stride
+    y = F.conv_transpose2d(x, layer.weight, layer.bias, stride=stride)
+    return y[..., :H, :W]
+
+
+@lru_cache(maxsize=16)
+def _divergence_consts(ny: int, nx: int, device: torch.device,
+                       dtype: torch.dtype):
+    """(ik, il) of the L = 1e6 m grid as complex tensors on `device`, built
+    once per shape: a captured step copies no array to the card."""
+    g = make_grid(nx, ny, L=1e6)
+    return (torch.as_tensor(g.ik, dtype=dtype, device=device),
+            torch.as_tensor(g.il, dtype=dtype, device=device))
+
+
+def spectral_divergence(x: torch.Tensor) -> torch.Tensor:
+    """NHWC (..., ny, nx, 2C) -> (..., ny, nx, C): d/dx of the first C
+    channels plus d/dy of the last C, by rFFT, on the reference L = 1e6 m
+    domain whatever the run's L (the twin's `spectral_divergence`)."""
+    ny, nx, c = x.shape[-3], x.shape[-2], x.shape[-1] // 2
+    xh = torch.fft.rfftn(x.movedim(-1, -3), dim=(-2, -1))
+    ik, il = _divergence_consts(ny, nx, x.device, xh.dtype)
+    div_h = xh[..., :c, :, :] * ik + xh[..., c:, :, :] * il
+    div = torch.fft.irfftn(div_h, s=(ny, nx), dim=(-2, -1))
+    return div.movedim(-3, -1)
+
+
+def divergence_head(y: torch.Tensor) -> torch.Tensor:
+    """The `div=True` head: 10000 * spectral divergence, in float32."""
+    return 10000.0 * spectral_divergence(y.to(torch.float32))
+
+
+def _activation(x: torch.Tensor, name: str) -> torch.Tensor:
+    """flax's activation of that name (`relu`, `softplus`, ...)."""
+    return getattr(F, name.lower())(x)
 
 
 class AndrewCNN(nn.Module):
     """8-layer circular CNN, ReLU + BatchNorm after each hidden conv
     (reference tools/cnn_tools.py:125-182). Eval-mode BatchNorm uses the
-    running statistics, as the twin does with `train=False`."""
+    running statistics, as the twin does with `train=False`. `div=True`
+    doubles the output channels and returns 10000 * their spectral
+    divergence, n_out channels."""
 
     def __init__(self, n_in: int, n_out: int,
                  hidden_channels: Sequence[int] = HIDDEN,
@@ -42,37 +107,37 @@ class AndrewCNN(nn.Module):
                  relu: str = "ReLU", final_activation: str = "None",
                  div: bool = False):
         super().__init__()
-        if div:
-            raise NotImplementedError(
-                "div=True (spectral-divergence head) is not ported yet")
         if any(k % 2 == 0 for k in kernels):
             raise ValueError("circular 'same' convolutions need odd kernels")
-        chans = list(hidden_channels) + [n_out]
+        chans = list(hidden_channels) + [2 * n_out if div else n_out]
         cins = [n_in] + chans[:-1]
-        self.convs = nn.ModuleList(
-            nn.Conv2d(ci, co, k, bias=bias)
-            for ci, co, k in zip(cins, chans, kernels))
-        n_hidden = len(self.convs) - 1
-        self.bns = nn.ModuleList(
-            nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
-            for c in chans[:n_hidden]) if batch_norm else None
+        self.n_layers = len(list(zip(chans, kernels)))
+        for i, (ci, co, k) in enumerate(zip(cins, chans, kernels)):
+            self.add_module(f"Conv_{i}", nn.Conv2d(ci, co, k, bias=bias))
+            if batch_norm and i < self.n_layers - 1:
+                self.add_module(f"BatchNorm_{i}",
+                                nn.BatchNorm2d(co, eps=BN_EPS))
+        self.batch_norm = batch_norm
         self.relu = relu
         self.final_activation = final_activation
+        self.div = div
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C) NHWC -> (B, H, W, n_out)."""
         x = x.permute(0, 3, 1, 2)
-        last = len(self.convs) - 1
-        for i, conv in enumerate(self.convs):
+        last = self.n_layers - 1
+        for i in range(self.n_layers):
+            conv = getattr(self, f"Conv_{i}")
             x = circular_conv2d(x, conv.weight, conv.bias)
             if i < last:
                 x = F.relu(x) if self.relu == "ReLU" \
                     else F.leaky_relu(x, 0.2)
-                if self.bns is not None:
-                    x = self.bns[i](x)
+                if self.batch_norm:
+                    x = getattr(self, f"BatchNorm_{i}")(x)
         if self.final_activation != "None":
-            x = getattr(F, self.final_activation)(x)
-        return x.permute(0, 2, 3, 1)
+            x = _activation(x, self.final_activation)
+        x = x.permute(0, 2, 3, 1)
+        return divergence_head(x) if self.div else x
 
 
 def VarCNN(n_in: int, n_out: int, **kw) -> AndrewCNN:
@@ -82,13 +147,193 @@ def VarCNN(n_in: int, n_out: int, **kw) -> AndrewCNN:
     return AndrewCNN(n_in, n_out, **kw)
 
 
+class ANN(nn.Module):
+    """Pointwise MLP on flattened stencils (..., n_in) -> (..., n_out), ReLU
+    between the dense layers; with `degree`, the scale-invariant form
+    norm(x)^degree * f(x / norm(x)) (reference tools/cnn_tools.py:184-210).
+    """
+
+    def __init__(self, n_in: int, n_out: int,
+                 hidden_channels: Sequence[int] = (24, 24),
+                 degree: float | None = None):
+        super().__init__()
+        widths = [n_in] + list(hidden_channels) + [n_out]
+        self.n_layers = len(widths) - 1
+        for i in range(self.n_layers):
+            self.add_module(f"Dense_{i}", nn.Linear(widths[i],
+                                                    widths[i + 1]))
+        self.degree = degree
+
+    def _mlp(self, z: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            z = getattr(self, f"Dense_{i}")(z)
+            if i < self.n_layers - 1:
+                z = F.relu(z)
+        return z
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.degree is None:
+            return self._mlp(x)
+        norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        safe = torch.where(norm == 0, torch.ones_like(norm), norm)
+        return safe ** self.degree * self._mlp(x / safe)
+
+
+class ResUnit(nn.Module):
+    """Residual unit with circular 3x3 convs on NCHW:
+    y = norm(x); out = (leaky -> conv -> norm -> leaky -> conv)(y) +
+    conv1x1(y) (reference tools/deep_inversion.py:104-124); `bn` is
+    "BatchNorm" or "None"."""
+
+    def __init__(self, in_ch: int, out_ch: int, bn: str = "BatchNorm"):
+        super().__init__()
+        if bn not in ("BatchNorm", "None"):
+            raise ValueError(f"norm {bn!r}: 'BatchNorm' or 'None'")
+        self.bn = bn
+        if bn == "BatchNorm":
+            self.BatchNorm_0 = nn.BatchNorm2d(in_ch, eps=BN_EPS)
+            self.BatchNorm_1 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+        self.Conv_0 = nn.Conv2d(in_ch, out_ch, 3)
+        self.Conv_1 = nn.Conv2d(out_ch, out_ch, 3)
+        self.Conv_2 = nn.Conv2d(in_ch, out_ch, 1)
+
+    def _norm(self, i: int, z: torch.Tensor) -> torch.Tensor:
+        return z if self.bn == "None" else getattr(self, f"BatchNorm_{i}")(z)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._norm(0, x)
+        h = circular_conv2d(F.leaky_relu(y, 0.2), self.Conv_0.weight,
+                            self.Conv_0.bias)
+        h = F.leaky_relu(self._norm(1, h), 0.2)
+        h = circular_conv2d(h, self.Conv_1.weight, self.Conv_1.bias)
+        return h + self.Conv_2(y)
+
+
+class DeepInversionGenerator(nn.Module):
+    """U-Net generator (arXiv 1811.05910 fig. 8): circular residual units,
+    2x2 average pooling down to 1/16 of the grid, 2x2 stride-2 transposed
+    convs up with skip concatenation (reference
+    tools/deep_inversion.py:44-101). NHWC in and out."""
+
+    DOWN = (64, 128, 256, 512)
+
+    def __init__(self, n_in: int, n_out: int):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(n_in, 32, 3)
+        units = [(32, 32, "None")]
+        ch = 32
+        for w in self.DOWN:
+            units.append((ch, w, "BatchNorm"))
+            ch = w
+        units.append((512, 512, "BatchNorm"))
+        for i, w in enumerate((256, 128, 64, 32)):
+            self.add_module(f"ConvTranspose_{i}",
+                            nn.ConvTranspose2d(ch, ch // 2, 2, stride=2))
+            units.append((ch // 2 + w, w, "BatchNorm"))
+            ch = w
+        units.append((32, 32, "None"))
+        for i, (ci, co, bn) in enumerate(units):
+            self.add_module(f"ResUnit_{i}", ResUnit(ci, co, bn))
+        self.Conv_1 = nn.Conv2d(32, n_out, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        x = circular_conv2d(x, self.Conv_0.weight, self.Conv_0.bias)
+        skips = [self.ResUnit_0(x)]
+        for i in range(1, 5):
+            skips.append(getattr(self, f"ResUnit_{i}")(
+                F.avg_pool2d(skips[-1], 2)))
+        h = self.ResUnit_5(skips.pop())
+        for i in range(4):
+            h = _conv_transpose_same(h, getattr(self, f"ConvTranspose_{i}"),
+                                     2)
+            h = getattr(self, f"ResUnit_{6 + i}")(
+                torch.cat([h, skips.pop()], dim=1))
+        h = self.ResUnit_10(h)
+        return self.Conv_1(h).permute(0, 2, 3, 1)
+
+
+class Downsampling(nn.Module):
+    """Stride-2 circular 3x3 convs, each with BatchNorm and LeakyReLU(0.01),
+    then (`flatten`) a dense head on the map flattened in NHWC order
+    (reference tools/cnn_tools.py:246-279): (B, nx, nx, n_in) -> (B, n_out)
+    or, unflattened, (B, nx/2^n_down, ..., n_out). The bottleneck VAE's
+    encoder."""
+
+    def __init__(self, n_in: int, n_down: int, n_out: int, nx: int = 64,
+                 hidden_dims: Sequence[int] = (32, 64, 128, 256, 512, 1024),
+                 flatten: bool = True):
+        super().__init__()
+        self.n_down, self.flatten = n_down, flatten
+        ch = n_in
+        for i in range(n_down):
+            nout = n_out if (i == n_down - 1 and not flatten) \
+                else hidden_dims[i]
+            self.add_module(f"Conv_{i}", nn.Conv2d(ch, nout, 3))
+            self.add_module(f"BatchNorm_{i}", nn.BatchNorm2d(nout,
+                                                             eps=BN_EPS))
+            ch = nout
+        if flatten:
+            nxc = nx // 2 ** n_down
+            self.Dense_0 = nn.Linear(ch * nxc * nxc, n_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        for i in range(self.n_down):
+            conv = getattr(self, f"Conv_{i}")
+            x = circular_conv2d(x, conv.weight, conv.bias, stride=2)
+            x = F.leaky_relu(getattr(self, f"BatchNorm_{i}")(x), 0.01)
+        x = x.permute(0, 2, 3, 1)
+        if self.flatten:
+            x = self.Dense_0(x.reshape(x.shape[0], -1))
+        return x
+
+
+class Upsampling(nn.Module):
+    """(`flatten`) a dense layer from a flat latent (B, n_in) unflattened in
+    NHWC order to (B, nx/2^n_up, ..., C), then stride-2 3x3 transposed convs
+    ("SAME"), each with BatchNorm and LeakyReLU(0.01) (reference
+    tools/cnn_tools.py:281-319): -> (B, nx, nx, n_out). The bottleneck VAE's
+    deep decoder."""
+
+    def __init__(self, n_in: int, n_up: int, n_out: int, nx: int = 64,
+                 hidden_dims: Sequence[int] = (32, 64, 128, 256, 512, 1024),
+                 flatten: bool = True):
+        super().__init__()
+        hd = list(hidden_dims[:n_up])[::-1]
+        self.n_up, self.flatten, self.nxc, self.hd0 = n_up, flatten, \
+            nx // 2 ** n_up, hd[0]
+        if flatten:
+            self.Dense_0 = nn.Linear(n_in, hd[0] * self.nxc * self.nxc)
+        ch = hd[0] if flatten else n_in
+        for i in range(n_up):
+            nout = n_out if i == n_up - 1 else hd[i + 1] \
+                if i + 1 < len(hd) else n_out
+            self.add_module(f"ConvTranspose_{i}",
+                            nn.ConvTranspose2d(ch, nout, 3, stride=2))
+            self.add_module(f"BatchNorm_{i}", nn.BatchNorm2d(nout,
+                                                             eps=BN_EPS))
+            ch = nout
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.flatten:
+            x = self.Dense_0(x).reshape(x.shape[0], self.nxc, self.nxc,
+                                        self.hd0)
+        x = x.permute(0, 3, 1, 2)
+        for i in range(self.n_up):
+            x = _conv_transpose_same(
+                x, getattr(self, f"ConvTranspose_{i}"), 2)
+            x = F.leaky_relu(getattr(self, f"BatchNorm_{i}")(x), 0.01)
+        return x.permute(0, 2, 3, 1)
+
+
 def _to_numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy_tree(v) for k, v in tree.items()}
     return np.asarray(tree)
 
 
-def fold_batchnorm(variables: dict, eps: float = 1e-5) -> dict:
+def fold_batchnorm(variables: dict, eps: float = BN_EPS) -> dict:
     """Fold eval-mode BatchNorms of an AndrewCNN into the *following* conv
     (numpy, on the flax tree; the twin's code).
 

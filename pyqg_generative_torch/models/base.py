@@ -1,10 +1,13 @@
-"""Parameterization base class (online hooks) and the model registry.
+"""Parameterization base class (online hooks), the model registry and the
+folder contract's writers.
 
-Twin of the online half of `pyqg_generative_tpu/models/base.py` (:43-57,
+Twin of the online half of `pyqg_generative_tpu/models/base.py` (:43-66,
 :125-163): a closure maps PV snapshots (..., lev, ny, nx) and latent noise
-(..., ny, nx, n_latent) to a PV forcing, with the spatial mean removed per
-layer. Leading axes are ensemble members. The offline test harness and the
-persistence of trained models wait for the training slice.
+(..., model-defined shape) to a PV forcing, with the spatial mean removed
+per layer. Leading axes are ensemble members. `save_model_args` and
+`save_variables` write the twin's folder contract (`model_args.json`, flax
+msgpack weights, written with `msgpack` alone). The offline test harness
+waits for the evaluation slice.
 """
 from __future__ import annotations
 
@@ -13,8 +16,10 @@ import os
 
 import torch
 
+from ..ml.weights import to_msgpack_bytes
+
 __all__ = ["Parameterization", "register_model", "load_model",
-           "MODEL_REGISTRY"]
+           "MODEL_REGISTRY", "save_model_args", "save_variables"]
 
 MODEL_REGISTRY: dict[str, type] = {}
 
@@ -35,8 +40,29 @@ def load_model(folder: str = "model", device=None, **overrides):
     return MODEL_REGISTRY[name](folder=folder, device=device, **args)
 
 
+def save_model_args(model_name: str, folder: str = "model", **kw):
+    """`model_args.json`: the class name and its constructor arguments."""
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "model_args.json"), "w") as f:
+        json.dump({"model": model_name, **kw}, f)
+
+
+def save_variables(variables: dict, path: str):
+    """A flax variable tree (numpy or torch arrays) as the bytes flax's
+    `serialization.to_bytes` writes."""
+    with open(path, "wb") as f:
+        f.write(to_msgpack_bytes(variables))
+
+
 class Parameterization:
-    """Abstract stochastic subgrid closure."""
+    """Abstract stochastic subgrid closure.
+
+    `weights_generation` counts the weight sets a model has loaded: a model
+    that switches weights (`load_model`, `use_optimal_epoch`, ...) drops
+    what it derived from the old ones and adds one, and a `GraphedStep`
+    captured under one generation never replays under another."""
+
+    weights_generation = 0
 
     def latent_shape(self, ny: int, nx: int) -> tuple:
         """Shape of one member's latent noise (NHWC, channels last)."""

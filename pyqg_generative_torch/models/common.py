@@ -1,4 +1,5 @@
-"""Helpers of the CNN closures: layouts and the saved scalers.
+"""Helpers of the CNN closures: layouts, the saved scalers and the online
+AndrewCNN chain.
 
 Twin of `nhwc_from_lev` / `lev_from_nhwc` in
 `pyqg_generative_tpu/models/common.py`, extended to a leading member axis.
@@ -7,9 +8,30 @@ from __future__ import annotations
 
 import torch
 
+from ..ml.fused_conv import make_online_cnn
+from ..ml.nets import divergence_head, fold_batchnorm
 from ..ml.scalers import ChannelwiseScaler
 
-__all__ = ["nhwc_from_lev", "lev_from_nhwc", "read_scalers"]
+__all__ = ["nhwc_from_lev", "lev_from_nhwc", "read_scalers", "online_chain"]
+
+
+def online_chain(variables: dict, compute_dtype, variant: str, device,
+                 div: bool = False):
+    """The online forward of an AndrewCNN's flax variables: BN-folded,
+    Conv_0 in PyTorch and Conv_1..Conv_7 through the wrapper of the kernel
+    `variant` names (`fused_conv.make_online_cnn`); with `div`, the chain
+    is 4 wide and `divergence_head` follows. apply(x) carries the chain's
+    `first_layer` and `packed` weights."""
+    cnn = make_online_cnn(fold_batchnorm(variables), compute_dtype,
+                          variant=variant, device=device)
+    if not div:
+        return cnn
+
+    def apply(x):
+        return divergence_head(cnn(x))
+
+    apply.first_layer, apply.packed = cnn.first_layer, cnn.packed
+    return apply
 
 
 def read_scalers(model, folder: str) -> None:

@@ -31,6 +31,11 @@ launch.
 * **Random draws.** The sampler's generator is registered with every graph,
   so a replay draws fresh noise and moves the generator on as an eager draw
   does.
+* **Weights switch.** A model that loads other weights
+  (`use_optimal_epoch`, `use_stable_epoch`, `load_model`) raises its
+  `weights_generation`; a graph holds the addresses of the weights derived
+  at its capture, so on a new generation the step drops its graphs and warms
+  up and captures again, and never replays a graph of the old weights.
 * **Failure raises.** A capture that meets a host read of the device, an
   allocation of K2's counters or any other call that stream capture refuses
   raises; so does a replay that fails, and a capture that records K2 as a
@@ -90,8 +95,10 @@ class GraphedStep:
     def __init__(self, p: QGParams, model=None, sampling: str = "AR1",
                  nsteps: int = 1, with_diags: bool = True):
         self.p, self.sampling, self.nsteps = p, sampling, nsteps
+        self.model = model
         self._step = simulate.make_online_step(p, model, sampling, nsteps,
                                               with_diags)
+        self._generation = self._weights_generation()
         self._graphs: dict = {}
         self._seen: set = set()
         self._eager = 0
@@ -107,6 +114,11 @@ class GraphedStep:
                              f"{device}")
         if self.stream is None:
             self.stream = torch.cuda.Stream(device)
+        if self._weights_generation() != self._generation:
+            self._graphs.clear()
+            self._seen.clear()
+            self._eager = 0
+            self._generation = self._weights_generation()
         caller = torch.cuda.current_stream(device)
         self.stream.wait_stream(caller)
         with torch.cuda.stream(self.stream):
@@ -121,6 +133,9 @@ class GraphedStep:
                 out = self._run_eagerly(key, carry)
         caller.wait_stream(self.stream)
         return out
+
+    def _weights_generation(self) -> int:
+        return getattr(self.model, "weights_generation", 0)
 
     def _branch(self, carry):
         """The host decisions of this step, which select its graph."""

@@ -15,10 +15,12 @@ import pytest
 import torch
 
 from pyqg_generative_torch.ml import _build, fused_conv
+from pyqg_generative_torch.ml import nets
 from pyqg_generative_torch.ml.nets import fold_batchnorm
-from pyqg_generative_torch.ml.weights import read_msgpack
-from pyqg_generative_torch.models import CGANRegression, CVAERegression, \
-    MeanVarModel, Parameterization, load_model
+from pyqg_generative_torch.ml.weights import read_msgpack, seeded_variables
+from pyqg_generative_torch.models import ANNModel, CGANRegression, \
+    CVAEBottleneck, CVAERegression, MeanVarModel, OLSModel, \
+    Parameterization, load_model, physical, save_model_args, save_variables
 from pyqg_generative_torch.qg import core
 from pyqg_generative_torch.qg.params import QGParams
 from pyqg_generative_torch.sim import advance_run, graph, \
@@ -33,6 +35,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pyqg_generative_tpu"}
 FOLDER = str(ROOT / "trained_models" / "eddy_gan_64")
 GZ = str(ROOT / "trained_models" / "r4_eddy_gz_64_op1_s0")
 VAE = str(ROOT / "trained_models" / "r4_eddy_vae_64_op1_s0")
+GAN_OPT = str(ROOT / "trained_models" / "r4_eddy_gan_64_op1_s0")
+ANN = str(ROOT / "trained_models" / "ann_eddy_jet")
 # the settings of the port's online paths 2 (GZ) and 3 (VAE)
 GZ_PATH = dict(inference_dtype="bfloat16", online_variant="dxbpair")
 VAE_PATH = dict(online_variant="packed")
@@ -51,6 +55,11 @@ def test_no_jax_imports():
     files = sorted((ROOT / "pyqg_generative_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
     assert len(files) > 15
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for module in ("qg/operators", "models/physical", "models/ann_model",
+                   "models/ols_model", "models/cvae_bottleneck",
+                   "ml/weights", "ml/nets"):
+        assert f"pyqg_generative_torch/{module}.py" in names
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -68,10 +77,20 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     folded = {"params": {f"Conv_{i}": {"kernel": np.ones((3, 3, 2, 2)),
                                        "bias": np.zeros(2)}
                          for i in range(2)}}
+    closures = [getattr(physical, n) for n in physical.__all__
+                if n != "PhysicalParameterization"]
+    assert len(closures) == 11
     calls = [lambda: load_model(FOLDER),
              lambda: CGANRegression(folder=FOLDER),
+             lambda: CGANRegression(folder="missing",
+                                    generator="DeepInversion"),
              lambda: MeanVarModel(folder=GZ),
              lambda: CVAERegression(folder=VAE),
+             lambda: CVAEBottleneck(folder="missing"),
+             lambda: OLSModel(folder="missing"),
+             lambda: ANNModel(folder=ANN),
+             lambda: load_model(ANN),
+             *[lambda c=c: c() for c in closures],
              lambda: run_ensemble(p, n_ens=1, sampling_freq=14400.0),
              lambda: run_ensemble_segmented(p, n_ens=1,
                                             sampling_freq=14400.0),
@@ -688,3 +707,100 @@ def test_k2_counters_exist_before_capture_on_card(monkeypatch):
     with pytest.raises(RuntimeError, match="under graph capture"):
         with torch.cuda.graph(g, stream=stream):
             fused_conv.packed_cnn_forward(x, packed)
+
+
+def _seeded_folder(path, name, modules, **args):
+    """A model folder written by the port on seeded weights of `modules`
+    (file name -> module), with eddy_gan_64's scalers."""
+    for i, (fname, module) in enumerate(modules.items()):
+        save_variables(seeded_variables(module, 70 + i),
+                       str(path / f"{fname}.msgpack"))
+    for s in ("x_scale.json", "y_scale.json"):
+        (path / s).write_text((pathlib.Path(FOLDER) / s).read_text())
+    save_model_args(name, folder=str(path), **args)
+    return str(path)
+
+
+def _zoo_model(case, path):
+    """(model on the card, the launch count its chain kernel adds to or
+    None) of a closure of the zoo."""
+    if case == "gan_opt_k1":
+        model = load_model(GAN_OPT, device="cuda")
+        assert model.use_optimal_epoch()
+        return model, "launches"
+    if case == "div_gan_k1":
+        return load_model(_seeded_folder(
+            path, "CGANRegression", {"G": nets.AndrewCNN(4, 2, div=True)},
+            regression="None", nx=32, generator="Andrew", div=True),
+            device="cuda"), "launches"
+    if case == "bottleneck":
+        return load_model(_seeded_folder(
+            path, "CVAEBottleneck",
+            {"deep_decoder": nets.Upsampling(100, 4, 2, nx=32),
+             "decoder": nets.AndrewCNN(4, 2),
+             "net_mean": nets.AndrewCNN(2, 2)}, nx=32), device="cuda"), None
+    return physical.BackscatterEddy(device="cuda"), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gan_opt_k1", "div_gan_k1", "physical",
+                                  "bottleneck"])
+def test_zoo_graphed_run_equals_eager_loop_on_card(case, tmp_path):
+    """`run_ensemble` of a closure of this slice replays captured graphs and
+    equals the eager step loop bitwise, AR1 white noise from one seed: the
+    GAN's `opt` weights and a div=True GAN (its 4-wide chain through K1,
+    then the divergence head), a physical closure (u, v and psi, no noise)
+    and the bottleneck VAE (a flat latent of 100 a member, drawn every
+    step). 2 members x 32^2, 20 steps; a kernel wrapper counts one call a
+    step run eagerly or captured."""
+    _need_card()
+    model, count = _zoo_model(case, tmp_path)
+    closure = {"self": model, "sampling": "AR1", "nsteps": 1}
+    p = QGParams(nx=32, dt=14400.0, tavestart=0.0, tmax=20 * 14400.0)
+    ref, _ = _eager_dataset(p, closure, 2, 10, 2)
+    read = (lambda: (getattr(fused_conv, count) if count else 0,
+                     graph.eager_steps, graph.captured_steps,
+                     graph.replayed_steps))
+    before = read()
+    ds = run_ensemble(p, closure, n_ens=2, sampling_freq=10 * 14400.0,
+                      device="cuda")
+    calls, eager, captured, replayed = (a - b for a, b in zip(read(),
+                                                              before))
+    assert eager + replayed == 20 and captured >= 2 and replayed > eager
+    if count:
+        assert calls == eager + captured
+    assert np.isfinite(ds["q"].values).all()
+    for k in ref.keys():
+        np.testing.assert_array_equal(ds[k].values, ref[k].values,
+                                      err_msg=k)
+
+
+@pytest.mark.cuda
+def test_graphed_step_recaptures_after_switch_on_card():
+    """A GraphedStep held across `use_optimal_epoch` drops its graphs and
+    captures anew from the new weights: it never replays a graph of the old
+    ones, and after the switch it equals the eager step loop that switched
+    at the same step, bitwise (frozen noise, 2 members x 32^2)."""
+    _need_card()
+    p = QGParams(nx=32, dt=14400.0, tavestart=0.0)
+    q0 = np.stack([core.default_initial_q(
+        p, rng=np.random.default_rng(j)).numpy() for j in range(2)])
+
+    def run(graphed):
+        model = load_model(GAN_OPT, device="cuda")
+        carry = init_run_carry(p, q0, 0, model, device="cuda")
+        step = graph.GraphedStep(p, model, "AR1", -1) if graphed \
+            else make_online_step(p, model, "AR1", -1)
+        for _ in range(8):
+            carry = step(carry)
+        captured = graph.captured_steps
+        assert model.use_optimal_epoch()
+        for _ in range(8):
+            carry = step(carry)
+        return carry[0].qh.clone(), graph.captured_steps - captured, step
+
+    eager, _, _ = run(False)
+    graphed, recaptured, step = run(True)
+    assert recaptured >= 1 and step._generation == step.model \
+        .weights_generation
+    assert torch.equal(graphed, eager)
