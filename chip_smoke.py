@@ -97,17 +97,52 @@ Phases, in order; any failure raises and the exit code is nonzero:
    4-wide last layer runs the narrow tile, as the 2-wide one does) against
    their plain versions and by the per-layer check; and a checkpoint switch
    on the card, which changes the forcing, and after which a GraphedStep
-   held across it captures anew.
+   held across it captures anew;
+10. the scoring path (see REDUCED for its cut), each part with the counts
+   set to 0 just before it and read just after:
+   - generate_subgrid_forcing at the eddy configuration at 256^2, Nc =
+     (64,), Operator2 and Operator5, 2 snapshots of 1,000 steps, its DNS
+     steps replayed from a captured graph, twice (host seconds and
+     member-steps/s of each run); then 20 steps and one snapshot in
+     float64 on the card and on the CPU: q, u, v, psi to 1e-9 of max|ref|
+     and S to 1e-9 of its advection term's max (S is the difference of two
+     such terms), each plus one float32 rounding;
+   - test_offline at M = 1000 on those snapshots of eddy_gan_64 (K1) and
+     of r4_eddy_vae_64_op1_s0 with "packed" (K2): the offline program
+     hands the kernel 256 draws x 2 snapshots = 512 images a call, 4
+     calls; at that batch each kernel against its plain version (rtol 2e-4
+     / atol 2e-5*max) and by the per-layer check on a random field through
+     the same Conv_0, and on the offline input itself against the cuDNN
+     chain, which sums in its order (there the last layer is a
+     cancellation that float32 resolves to about 1e-4 of its max, so the
+     plain version, float64 and the per-layer check are readings); each
+     kernel timed at that batch;
+   - the GZ's predict (r4_eddy_gz_64_op1_s0, path 2's settings, run in
+     float32 offline: 2 K1 calls) on the snapshots and on them scaled to
+     the model's input scale: its mean and variance nets against the same
+     nets in float64 on the CPU, the card no further than twice the CPU or
+     2e-5 of max|ref| (the mean net's output is a cancellation);
+   - eddy_gan_64 through run_ensemble (10 x 64^2, dt 14400 s, AR1,
+     diagnostics on) and a 256^2 reference run for the same 83 days,
+     coarse-grained by coarsegrain_reference_dataset (Operator2, 64):
+     diagnostic_differences, distrib_score and spectral_score, readings;
+   - entry(): 20 calls of its step (K1-bf16 once a step; its variant "dx"
+     never probes, so K3 does not launch), q finite, K1-bf16 by the
+     per-layer check on the step's chain input, K3 against its plain
+     version.
 It prints a JSON line of the step profiles, one of phase 9's readings, one
-of kernel measurements, then the nvidia-smi line, and last {"ok": true,
-"device": {...}}. In the kernel
+of phase 10's, one of kernel measurements, then the nvidia-smi line, and
+last {"ok": true, "device": {...}}. In the kernel
 line, launches is the path's wrapper calls in phase 4's graphed runs, and
 graph_replays the replayed steps there, each of which launches the kernel
 as an eager step does; max_abs_err is max|kernel - plain| at the path's
 shapes; for K1-bf16, which sums in its own order, the largest per-layer
 max|K1-bf16 - float64|, and its extra library_grouped_ms times cuDNN with
 groups=2. K1 and K2 carry layer_ms, their device ms a layer, and K2 its bf16
-reading.
+reading. Each row's "phase10" holds the kernel at phase 10's shapes (K1 and
+K2 at the offline batch, K1-bf16 at entry()'s one member, K3 at the probe's
+shape): its batch, its launches in phase 10's runs, max|kernel - plain|,
+its ms, its plain version's and the library's, and its bound.
 
 Run from the repository root: python3 chip_smoke.py
 Where CUDA is not available it exits with code 1 and prints no result.
@@ -157,6 +192,16 @@ F32_BOUND, BF16_COARSE = 2e-5, 2.0
 ZOO_STEPS, ZOO_SNAP = 100, 50
 ZOO_DIR = ROOT / "build" / "phase9_models"
 PHYSICAL_ARGS = {"Laplace": {"nu": 100.0}}
+# phase 10: the scoring path. The DNS is the pipeline's eddy configuration at
+# 256^2 (exp/pipeline.py:43-57), cut from 300 runs of 87,600 steps to one run
+# of DNS_SNAPS snapshots of 1,000 steps; the offline ensemble is the
+# published M = 1000; the forcing is held card against CPU in float64 after
+# CHECK_STEPS steps; entry()'s step runs ENTRY_CALLS times
+DNS_NX, DNS_SNAPS, OFFLINE_M, CHECK_STEPS, ENTRY_CALLS = 256, 2, 1000, 20, 20
+REDUCED = ("one DNS run of 2,000 steps at 256^2 (2 snapshots of 1,000 "
+           "steps), where the pipeline runs 300 of 87,600 "
+           "(exp/pipeline.py:43-57); the online runs for the same 83.3 "
+           "days; widths, grids and M = 1000 as published")
 COUNTS = ("launches", "launches_bf16", "launches_packed", "launches_probe")
 LIBRARIES = ("fused_conv", "packed_chain", "bitcast_probe")
 # peak rates and memory rate of one H100 SXM (NVIDIA data sheet, 700 W):
@@ -1117,6 +1162,401 @@ def every_closure(fused_conv, graph, p, smi):
     return readings
 
 
+def f32_kernel_times(fused_conv, name, packed, x):
+    """ms of a float32 chain kernel (K1 or K2) on x, of its plain version and
+    of the dense cuDNN chain, and its bound, as phase 3's rows have them."""
+    forward, plain = {
+        "K1": (fused_conv.fused_cnn_forward,
+               fused_conv.fused_cnn_forward_plain),
+        "K2": (fused_conv.packed_cnn_forward,
+               fused_conv.packed_cnn_forward_plain)}[name]
+    B, H, W, _ = x.shape
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    row = kernel_row(
+        name, "", 0, None, cuda_ms(lambda: forward(x, packed), 5, 1),
+        cuda_ms(lambda: plain(x, packed), 5, 1),
+        fused_conv.flops_per_member(packed.meta, H, W) * B,
+        4 * (x.numel() + B * H * W * packed.meta[-1][2]
+             + packed.wflat.numel() + packed.bflat.numel()),
+        PEAK_FP32_FLOPS,
+        cuda_ms(lambda: library_chain(x_nchw, packed.weights,
+                                      packed.biases), 5, 1))
+    return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}
+
+
+def with_run_dim(ds):
+    """The snapshots of one run on the (run, time, lev, y, x) dims that
+    test_offline reads."""
+    from pyqg_generative_torch.utils import xrlite as xr
+    out = xr.Dataset(attrs=dict(ds.attrs))
+    for k in ("q_forcing_advection", "q", "u", "v", "psi"):
+        out[k] = ds[k].expand_dims("run")
+    return out
+
+
+def forcing_on_card(fused_conv, graph, smi):
+    """Phase 10, part 1: generate_subgrid_forcing at the eddy configuration
+    at 256^2, Nc = (64,), Operator2 and Operator5, DNS_SNAPS snapshots of
+    1,000 steps, its DNS steps graphed; then card against CPU in float64
+    after CHECK_STEPS steps and one snapshot. Returns (the datasets, the
+    readings)."""
+    from pyqg_generative_torch.qg.operators import advect
+    from pyqg_generative_torch.qg.params import ANDREW_1000_STEPS, \
+        EDDY_PARAMS
+    from pyqg_generative_torch.sim import generate_subgrid_forcing
+    p = EDDY_PARAMS.with_nx(DNS_NX).replace(
+        tmax=DNS_SNAPS * ANDREW_1000_STEPS)
+    steps = DNS_SNAPS * int(round(ANDREW_1000_STEPS / p.dt))
+    readings = {}
+    for run in ("first", "second"):
+        set_counts(fused_conv, graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate_subgrid_forcing([NX], p, ANDREW_1000_STEPS,
+                                       ("Operator2", "Operator5"),
+                                       device=DEV)
+        seconds = time.perf_counter() - t0
+        counts, gsteps = read_counts(fused_conv, graph)
+        if any(counts.values()) or gsteps["eager_steps"] + \
+                gsteps["replayed_steps"] != steps or \
+                gsteps["replayed_steps"] < steps - 10:
+            raise AssertionError(f"forcing DNS: launch counts {counts}, "
+                                 f"graph counts {gsteps} for {steps} steps")
+        readings[run] = {"seconds": seconds,
+                         "dns_member_steps_per_s": steps / seconds,
+                         "graph_counts": gsteps}
+        log(f"phase 10, forcing data ({run} run): a {DNS_NX}^2 DNS of "
+            f"{steps} steps (dt {p.dt:g} s, {p.precision}), Operator2 and "
+            f"Operator5 to {NX}^2 every 1,000 steps: {seconds:.3f} s by the "
+            f"host clock, {steps / seconds:.1f} member-steps/s, graph "
+            f"counts {gsteps} on {smi}")
+    if sorted(out) != [f"Operator{o}-{NX}-dealias" for o in (2, 5)]:
+        raise AssertionError(f"forcing datasets {sorted(out)}")
+    for combo, ds in out.items():
+        for k in ("q_forcing_advection", "q", "u", "v", "psi"):
+            v = ds[k].values
+            if v.shape != (DNS_SNAPS, 2, NX, NX) or not np.isfinite(v).all():
+                raise AssertionError(f"{combo} {k}: shape {v.shape} or "
+                                     "not finite")
+        if not np.abs(ds["q_forcing_advection"].values).max() > 0:
+            raise AssertionError(f"{combo}: no subgrid forcing")
+
+    # card against CPU in float64. The datasets hold float32, so each value
+    # may also differ by the one rounding of its float64 value to float32.
+    # The forcing S = adv(q̄) - op(adv(q)) is a difference of two advection
+    # terms, and its float64 rounding is of their size: near the initial
+    # condition, and for the sharp Operator5 at any time where the DNS's
+    # field is resolved at 64^2, S is that rounding alone. So S is held to
+    # 1e-9 of the coarse advection term's max, the rest to 1e-9 of their own
+    pd = p.replace(precision="double", tmax=CHECK_STEPS * p.dt)
+    card, cpu = (generate_subgrid_forcing([NX], pd, CHECK_STEPS * p.dt,
+                                          device=d) for d in (DEV, "cpu"))
+    worst = {}
+    for combo, ref in cpu.items():
+        terms = advect(*(torch.as_tensor(ref[k].values, dtype=torch.float64)
+                         for k in ("q", "u", "v")), "3/2-rule")
+        for k in ("q_forcing_advection", "q", "u", "v", "psi"):
+            a, b = card[combo][k].values, ref[k].values
+            scale = float(terms.abs().max()) if k == "q_forcing_advection" \
+                else float(np.abs(b).max())
+            worst[f"{combo} {k}"] = float(np.abs(a - b).max()) / scale
+            np.testing.assert_allclose(a, b, rtol=2.4e-7, atol=1e-9 * scale,
+                                       err_msg=f"{combo} {k}")
+        worst[f"{combo} S / max|S|"] = float(np.abs(
+            card[combo]["q_forcing_advection"].values
+            - ref["q_forcing_advection"].values).max()) / float(
+            np.abs(ref["q_forcing_advection"].values).max())
+    readings["card_vs_cpu_double"] = worst
+    log(f"phase 10, forcing data card vs CPU in float64 after {CHECK_STEPS} "
+        "steps, max|diff| / scale (bound 1e-9 plus one float32 rounding; "
+        "S against its advection term): " + "; ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
+    return out, readings
+
+
+def offline_on_card(fused_conv, graph, forcing, rows, smi):
+    """Phase 10, part 2: test_offline of eddy_gan_64 (K1) and of
+    r4_eddy_vae_64_op1_s0 with "packed" (K2) on the Operator2 snapshots at
+    M = OFFLINE_M; the kernel at the batch the offline program gives it,
+    against its plain version and by the per-layer check, and timed; the
+    GZ's predict, card against CPU."""
+    from pyqg_generative_torch.models import load_model
+    from pyqg_generative_torch.models.base import extract
+    from pyqg_generative_torch.models.common import OFFLINE_PIXELS
+    from pyqg_generative_torch.utils import xrlite as xr
+    ds = with_run_dim(forcing[f"Operator2-{NX}-dealias"])
+    B = DNS_SNAPS
+    m = min(OFFLINE_M, OFFLINE_PIXELS // (B * NX * NX))
+    want_calls = -(-OFFLINE_M // m)
+    readings = {}
+    for name, row, kernel in (("gan", "k1", "K1"), ("vae", "k2", "K2")):
+        folder, kw, count, *_ = PATHS[name]
+        model = load_model(folder, device=DEV, **kw)
+        set_counts(fused_conv, graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.test_offline(ds, ensemble_size=OFFLINE_M)
+        seconds = time.perf_counter() - t0
+        counts = read_counts(fused_conv, graph)[0]
+        want = {c: 0 for c in COUNTS}
+        want[count] = want_calls
+        if counts != want:
+            raise AssertionError(f"offline {name}: launch counts {counts}, "
+                                 f"expected {want}")
+        for k in ("R2_mean", "R2_total", "L2_mean", "L2_total", "var_ratio",
+                  "PSD_gen", "Eflux_gen", "PDF_gen0", "spatial_skill"):
+            if not np.isfinite(out[k].values).all():
+                raise AssertionError(f"offline {name}: {k} not finite")
+        # the kernel at the offline batch: the chain input of the first
+        # chunk of m draws
+        chain = model._offline_cnn()
+        x = torch.as_tensor(model.x_scale.normalize(extract(ds, "q")),
+                            device=DEV)
+        z = torch.randn((m, B, NX, NX, 2), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(4))
+        act = chain.first_layer(torch.cat(
+            [x.expand((m,) + tuple(x.shape)), z], -1).flatten(0, 1))
+        forward, plain = {
+            "K1": (fused_conv.fused_cnn_forward,
+                   fused_conv.fused_cnn_forward_plain),
+            "K2": (fused_conv.packed_cnn_forward,
+                   fused_conv.packed_cnn_forward_plain)}[kernel]
+        packed = chain.packed
+        # at the offline batch, on a random field through the same Conv_0:
+        # the kernel against its plain version at the float32 bar, and the
+        # per-layer check
+        rand = chain.first_layer(torch.randn(
+            (m * B, NX, NX, 4), device=DEV,
+            generator=torch.Generator(device=DEV).manual_seed(14)))
+        y, ref = forward(rand, packed), plain(rand, packed)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        if not torch.allclose(y, ref, rtol=2e-4,
+                              atol=2e-5 * float(ref.abs().max())):
+            raise AssertionError(f"{kernel} disagrees with its plain "
+                                 f"version at the offline batch {m * B}")
+        check_layers(fused_conv, kernel, packed, rand,
+                     f"random field at the offline batch {m * B} x {NX}^2")
+        # on the offline input itself the last layer's 2 channels are a
+        # cancellation that float32 resolves to about 1e-4 of their max,
+        # whatever the order: the kernel is held against the cuDNN chain,
+        # which sums in its order, at the float32 bar; its plain version,
+        # float64 and the per-layer check are readings
+        y, lib = forward(act, packed), fused_conv.fused_cnn_forward_plain(
+            act, packed)
+        own, ref64 = plain(act, packed), float64_chain(act, packed)
+        torch.cuda.synchronize()
+        scale = float(lib.abs().max())
+        if not torch.allclose(y, lib, rtol=2e-4, atol=2e-5 * scale):
+            raise AssertionError(f"{kernel} disagrees with the cuDNN chain "
+                                 f"on the offline input, batch {m * B}")
+        layers = fused_conv.layer_check(act, packed, forward)["layers"]
+        log(f"{kernel} on the offline input at batch {m * B}: max|{kernel} "
+            f"- cuDNN chain| {float((y - lib).abs().max()):.3e} of max "
+            f"{scale:.3e}; readings: max|{kernel} - its plain version| "
+            f"{float((y - own).abs().max()):.3e}, against float64 "
+            f"{kernel} {float((y.double() - ref64).abs().max()):.3e}, "
+            f"plain {float((own.double() - ref64).abs().max()):.3e}; per "
+            "layer against float64 (relative RMS) " + ", ".join(
+                f"{r:.2e}" for r, _, _ in layers))
+        timing = f32_kernel_times(fused_conv, kernel, packed, act)
+        rows[row]["phase10"] = {"batch": m * B, "launches": counts[count],
+                                "max_abs_err": err, **timing}
+        readings[name] = {
+            "seconds": seconds, "launches": counts[count], "batch": m * B,
+            **{k: out[k].values.tolist() for k in (
+                "R2_mean", "R2_total", "L2_mean", "L2_total", "var_ratio")}}
+        log(f"phase 10, test_offline of {name} at M = {OFFLINE_M} on "
+            f"{B} snapshots: {seconds:.3f} s; {kernel} launched "
+            f"{counts[count]} times at a batch of {m * B} x {NX}^2, "
+            f"max|{kernel} - plain| {err:.3e} on a random field; "
+            f"{kernel} {timing['ms']:.3f} ms, plain {timing['plain_ms']:.3f}"
+            f", cuDNN chain {timing['library_ms']:.3f}, bound "
+            f"{timing['bound_ms']:.3f} ms on {smi}; R2_mean "
+            f"{readings[name]['R2_mean']}, L2_total "
+            f"{readings[name]['L2_total']}")
+
+    # the GZ's predict, card against CPU. The mean net's output is a small
+    # difference of large activations, which float32 resolves to 1e-3 of
+    # its max on these snapshots (far below the nets' training amplitude)
+    # and to 4e-5 at that amplitude, in either summation order. So each of
+    # its two nets is held against the same net in float64 (the unfolded
+    # module on the CPU): the card no further from it than twice the CPU,
+    # or than 2e-5 of max|ref|; card against CPU is a reading. The
+    # snapshots are read as they are and scaled, each level, to the
+    # model's input scale (x_scale).
+    import copy
+    folder, kw, *_ = PATHS["gz"]
+    card_model = load_model(folder, device=DEV, **kw)
+    cpu_model = load_model(folder, device="cpu", **kw)
+    nets64 = [copy.deepcopy(n).double() for n in (cpu_model.net_mean,
+                                                  cpu_model.net_var)]
+    q = ds["q"].values
+    std = q.std(axis=(0, 1, 3, 4), keepdims=True)
+    developed = xr.Dataset()
+    developed["q"] = xr.DataArray(
+        (q / std * card_model.x_scale.std.reshape(1, 1, 2, 1, 1)).astype(
+            np.float32), ds["q"].dims)
+    for what, data in (("snapshots", ds), ("developed", developed)):
+        set_counts(fused_conv, graph)
+        card = card_model.predict(data)
+        counts = read_counts(fused_conv, graph)[0]
+        if counts["launches"] != 2 or counts["launches_bf16"]:
+            raise AssertionError(f"GZ offline: launch counts {counts}, "
+                                 "expected 2 float32 K1 calls")
+        cpu = cpu_model.predict(data)
+        x = torch.as_tensor(cpu_model.x_scale.normalize(extract(data, "q")),
+                            dtype=torch.float64)
+        with torch.no_grad():
+            ref64 = [n(x).numpy() for n in nets64]
+        ref64 = [np.moveaxis(cpu_model.y_scale.denormalize(ref64[0]), -1, 1),
+                 np.moveaxis(cpu_model.y_scale.denormalize_var(ref64[1]),
+                             -1, 1)]
+        gz = {}
+        for k, r in zip(("q_forcing_advection_mean",
+                         "q_forcing_advection_var"), ref64):
+            a = card[k].values.reshape(r.shape)
+            b = cpu[k].values.reshape(r.shape)
+            scale = float(np.abs(r).max())
+            gz[k] = {"card_vs_float64": float(np.abs(a - r).max()) / scale,
+                     "cpu_vs_float64": float(np.abs(b - r).max()) / scale,
+                     "card_vs_cpu": float(np.abs(a - b).max()) / scale}
+            if not gz[k]["card_vs_float64"] <= max(
+                    2 * gz[k]["cpu_vs_float64"], 2e-5):
+                raise AssertionError(f"GZ predict {k} on the {what}: {gz[k]}")
+        readings[f"gz_predict_{what}"] = gz
+        log(f"phase 10, GZ predict on the {what}, max|diff| / max|float64|: "
+            + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.3e}" for n, v in
+                                             d.items())
+                        for k, d in gz.items()))
+    return readings
+
+
+def online_scores(fused_conv, graph, smi):
+    """Phase 10, part 3: eddy_gan_64 through run_ensemble (MEMBERS x 64^2,
+    dt 14400 s, AR1, diagnostics on) and a 256^2 reference run with
+    diagnostics for the same model time, coarse-grained by Operator2 to
+    64^2, and the paper's comparison of the two."""
+    from pyqg_generative_torch.eval import comparison
+    from pyqg_generative_torch.models import load_model
+    from pyqg_generative_torch.qg.params import ANDREW_1000_STEPS, \
+        EDDY_PARAMS
+    from pyqg_generative_torch.sim import run_ensemble, run_simulation
+    tmax = DNS_SNAPS * ANDREW_1000_STEPS
+    p = EDDY_PARAMS.with_nx(NX).replace(tavestart=0.0, tmax=tmax)
+    model = load_model(FOLDER, device=DEV)
+    set_counts(fused_conv, graph)
+    t0 = time.perf_counter()
+    ens = run_ensemble(p, {"self": model, "sampling": "AR1", "nsteps": 1},
+                       n_ens=MEMBERS, sampling_freq=ANDREW_1000_STEPS,
+                       device=DEV)
+    ens_s = time.perf_counter() - t0
+    counts, gsteps = read_counts(fused_conv, graph)
+    if counts["launches"] != gsteps["eager_steps"] + \
+            gsteps["captured_steps"] or gsteps["replayed_steps"] < 1:
+        raise AssertionError(f"online GAN: launch counts {counts}, graph "
+                             f"counts {gsteps}")
+    t0 = time.perf_counter()
+    ref = run_simulation(EDDY_PARAMS.with_nx(DNS_NX).replace(
+        tavestart=0.0, tmax=tmax), sampling_freq=ANDREW_1000_STEPS,
+        device=DEV)
+    ref_s = time.perf_counter() - t0
+    coarse = comparison.coarsegrain_reference_dataset(ref, NX, "Operator2",
+                                                      device=DEV)
+    norm, _, _ = comparison.diagnostic_differences(ens, coarse, T=DNS_SNAPS)
+    distrib = comparison.distrib_score(norm)
+    spectral = comparison.spectral_score(norm)
+    if not (np.isfinite(distrib) and np.isfinite(spectral)
+            and np.isfinite(list(norm.values())).all()):
+        raise AssertionError(f"online scores not finite: {norm}")
+    log(f"phase 10, online: {MEMBERS} x {NX}^2 GAN members for "
+        f"{tmax / 86400:.1f} days in {ens_s:.3f} s, the {DNS_NX}^2 "
+        f"reference in {ref_s:.3f} s; distrib_score {distrib:.4f}, "
+        f"spectral_score {spectral:.4f} (readings of a short run from the "
+        f"initial condition, not the paper's scores) on {smi}")
+    return {"ensemble_seconds": ens_s, "reference_seconds": ref_s,
+            "graph_counts": gsteps, "launches": counts["launches"],
+            "distrib_score": distrib, "spectral_score": spectral,
+            "normalized_differences": norm}
+
+
+def entry_on_card(fused_conv, graph, rows, smi):
+    """Phase 10, part 4: entry()'s step ENTRY_CALLS times on the card (K1 in
+    bf16 a step; its GAN's variant "dx" resolves without the probe, as the
+    twin's does, so K3 does not launch); K1-bf16 by the per-layer check on
+    the step's chain input after them; K3's words against its plain
+    version."""
+    from pyqg_generative_torch.entry import entry, untrained_gan
+    from pyqg_generative_torch.models.common import nhwc_from_lev
+    from pyqg_generative_torch.qg import core
+    from pyqg_generative_torch.qg.params import QGParams
+    set_counts(fused_conv, graph)
+    fn, (state, sstate) = entry()
+    for _ in range(ENTRY_CALLS):
+        state, sstate = fn(state, sstate)
+    torch.cuda.synchronize()
+    counts = read_counts(fused_conv, graph)[0]
+    want = {c: 0 for c in COUNTS}
+    want["launches_bf16"] = ENTRY_CALLS
+    if counts != want or not torch.isfinite(state.qh).all():
+        raise AssertionError(f"entry(): launch counts {counts}, expected "
+                             f"{want}, or q not finite")
+    p = QGParams(nx=64, dt=14400.0, precision="single")
+    model = untrained_gan(64, device=DEV)
+    chain = model._online_cnn()
+    x = nhwc_from_lev(core.fields(state.qh, p).q) / model._x_std
+    act = chain.first_layer(torch.cat([x, sstate.noise[None]], -1))
+    err = check_layers(fused_conv, "K1-bf16", chain.packed, act,
+                       f"entry()'s chain input after {ENTRY_CALLS} steps")
+    packed = chain.packed
+    B, H, W, _ = act.shape
+    act_bf = act.permute(0, 3, 1, 2).contiguous().to(torch.bfloat16)
+    w_bf = [w.to(torch.bfloat16) for w in packed.weights]
+    b_bf = [b.to(torch.bfloat16) for b in packed.biases]
+    row = kernel_row(
+        "", "", 0, err,
+        cuda_ms(lambda: fused_conv.fused_cnn_forward(act, packed)),
+        cuda_ms(lambda: fused_conv.fused_cnn_forward_plain(act, packed)),
+        fused_conv.flops_per_member(packed.meta, H, W) * B,
+        4 * (act.numel() + B * H * W * packed.meta[-1][2]
+             + packed.bflat.numel()) + 2 * packed.wflat.numel(),
+        PEAK_BF16_FLOPS, cuda_ms(lambda: library_chain(act_bf, w_bf, b_bf)))
+    rows["k1_bf16"]["phase10"] = {
+        "batch": B, "launches": counts["launches_bf16"],
+        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}}
+    probe = torch.tensor([1.0, 2.0, 3.0, 4.0], dtype=torch.bfloat16,
+                         device=DEV)[:, None].expand(4, 128).contiguous()
+    if not torch.equal(fused_conv.bitcast_pack_words(probe),
+                       fused_conv.bitcast_pack_words_plain(probe)):
+        raise AssertionError("K3 disagrees with its plain version")
+    rows["k3"]["phase10"] = {
+        "batch": 1, "launches": counts["launches_probe"],
+        **{k: rows["k3"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")}}
+    log(f"phase 10, entry(): {ENTRY_CALLS} steps, launch counts {counts}; "
+        f"K1-bf16 at 1 x 64^2 {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f}, cuDNN bf16 {row['library_ms']:.4f}, bound "
+        f"{row['bound_ms']:.6f} ms on {smi}; K3 equals its plain version")
+    return {"calls": ENTRY_CALLS, "launch_counts": counts,
+            "k1_bf16_worst_layer_err": err}
+
+
+def scoring_path(fused_conv, graph, rows, smi):
+    """Phase 10 (see the module's docstring). Returns its readings."""
+    t0 = time.perf_counter()
+    forcing, readings = forcing_on_card(fused_conv, graph, smi)
+    out = {"forcing": readings,
+           "offline": offline_on_card(fused_conv, graph, forcing, rows, smi),
+           "online": online_scores(fused_conv, graph, smi),
+           "entry": entry_on_card(fused_conv, graph, rows, smi),
+           "reduced": REDUCED}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _group(name: str) -> str:
     low = name.lower()
     if "conv_fma_kernel" in name:
@@ -1315,8 +1755,12 @@ def main():
     t0 = time.perf_counter()
     zoo_readings = every_closure(fused_conv, graph, p, smi)
     log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    # 10. the scoring path
+    phase10 = scoring_path(fused_conv, graph, rows, smi)
+    log(f"phase 10 took {phase10['seconds']:.1f} s")
     print(json.dumps({"step_profile": profiles}))
     print(json.dumps({"every_closure": zoo_readings, "card": smi}))
+    print(json.dumps({"scoring_path": phase10, "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ Twin of the online half of `pyqg_generative_tpu/models/ann_model.py`
 circular patch of one level's PV, divided by the saved `x_scale`, to the
 forcing at its centre, times `y_scale` (both scalars in `scale.json`);
 optionally scale-invariant, norm^2 * f(x / norm). The twin runs it through
-XLA, so the port runs its dense layers through cuBLAS under `exact_fp32`.
-Training waits for a later slice.
+XLA, so the port runs its dense layers through cuBLAS under `exact_fp32`,
+online and in the offline `predict` (twin :141-157, batches of 256 level
+fields). Training waits for a later slice.
 """
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ import torch
 
 from ..device import exact_fp32, resolve_device
 from ..ml.nets import ANN
+from ..ml.train import apply_in_batches
 from ..ml.weights import params_from_jax, read_msgpack
+from ..utils import xrlite as xr
 from .base import Parameterization, register_model
 
 __all__ = ["ANNModel", "stencil_stack"]
@@ -76,3 +79,20 @@ class ANNModel(Parameterization):
 
     def predict_mean_snapshot(self, q, M: int = 100):
         return self.predict_snapshot(q)
+
+    def predict(self, ds, M: int = 1000) -> xr.Dataset:
+        """The prediction of every level field of `ds`, in batches of 256, as
+        sample and mean, with zero variance (twin :141-157)."""
+        var = ds["q"]
+        for d in ("run", "time"):
+            if d not in var.dims:
+                var = var.expand_dims(d)
+        v = var.transpose("run", "time", "lev", "y", "x")
+        flat = v.values.reshape(-1, v.shape[-2], v.shape[-1]).astype(
+            "float32")
+        Y = apply_in_batches(self._field_apply, flat, batch_size=256,
+                             device=self.device)
+        da = xr.DataArray(Y.reshape(v.shape), dims=v.dims)
+        return xr.Dataset({"q_forcing_advection": da,
+                           "q_forcing_advection_mean": da,
+                           "q_forcing_advection_var": da * 0})

@@ -19,26 +19,41 @@ DeepInversion U-Net:
   `G` whenever the online variables are `vars_G`), so the port runs it
   through cuDNN under `exact_fp32`, in float32 whatever `inference_dtype`.
 
+Offline, `predict` gives a sample, the mean and the variance of M draws a
+snapshot (twin :353-417) in float32 whatever `inference_dtype`, as the
+twin's offline program runs its flax net in float32: an AndrewCNN generator
+then runs a float32 chain of its own, BN-folded, through K1 or K2
+(`common.offline_variant`), never the bf16 online pack; m draws of a batch
+of snapshots go through the chain as one batch of m*B images
+(`common.OFFLINE_PIXELS`), and are summed draw by draw as the twin's scan
+sums them. The draws are an argument of `_mean_var_program`, since torch
+cannot draw the twin's threefry keys.
+
 `use_optimal_epoch` and `use_stable_epoch` switch the generator to
-`G_opt.msgpack` or `G_stable.msgpack`: the packed kernel weights are dropped
-and `weights_generation` grows, so no graph captured before the switch
-replays after it (`sim/graph.py`). The twin's `online_backend` switch has no
-counterpart. Training and the critic wait for later slices.
+`G_opt.msgpack` or `G_stable.msgpack`: the packed kernel weights, online
+and offline, are dropped and `weights_generation` grows, so no graph
+captured before the switch replays after it (`sim/graph.py`). The twin's
+`online_backend` switch has no counterpart. Training and the critic wait
+for later slices.
 """
 from __future__ import annotations
 
 import os
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from ..device import exact_fp32, resolve_device
 from ..ml.fused_conv import compute_dtype_of
 from ..ml.nets import AndrewCNN, DeepInversionGenerator
+from ..ml.train import apply_in_batches
 from ..ml.weights import params_from_jax, read_msgpack
-from .base import Parameterization, register_model
-from .common import lev_from_nhwc, nhwc_from_lev, online_chain, \
-    read_scalers
+from ..utils import xrlite as xr
+from .base import Parameterization, array_to_dataset, extract, \
+    register_model
+from .common import draw_chunks, lev_from_nhwc, nhwc_from_lev, \
+    offline_variant, online_chain, read_scalers
 
 __all__ = ["CGANRegression"]
 
@@ -82,6 +97,7 @@ class CGANRegression(Parameterization):
             if regression != "None" else None
         self.vars_G = None
         self._online_cache = None
+        self._offline_cache = None
         self.load_model(folder)
 
     def load_model(self, folder) -> bool:
@@ -101,6 +117,7 @@ class CGANRegression(Parameterization):
         self.vars_G = read_msgpack(path)
         self.G.load_state_dict(params_from_jax(self.vars_G))
         self._online_cache = None
+        self._offline_cache = None
         self.weights_generation += 1
         return True
 
@@ -182,3 +199,106 @@ class CGANRegression(Parameterization):
             total = total + self.generate(x, z)
         y = total / M * self._y_std
         return lev_from_nhwc(y, batched=batched).to(q.dtype)
+
+    # ---------------------------------------------------------------- offline
+    def _offline_cnn(self):
+        """The generator's offline forward, in float32: an AndrewCNN's
+        BN-folded chain packed in float32 for the kernel `offline_variant`
+        names (a bf16 model's online pack is never reused), the
+        DeepInversion U-Net as online."""
+        if self._offline_cache is None:
+            if self.generator != "Andrew":
+                self._offline_cache = self._online_cnn()
+            else:
+                self._offline_cache = online_chain(
+                    self.vars_G, torch.float32,
+                    offline_variant(self.online_variant), self.device,
+                    self.div)
+        return self._offline_cache
+
+    @torch.no_grad()
+    def _generate_draws(self, x, z):
+        """m draws at once in normalised space: x (B, ny, nx, 2), z (m, B,
+        ny, nx, n_latent) -> (m, B, ny, nx, 2); the generator runs the m*B
+        images as one batch, the mean net (where there is one) the B."""
+        m = z.shape[0]
+        xz = torch.cat([x.expand((m,) + tuple(x.shape)), z], dim=-1)
+        y = self._offline_cnn()(xz.flatten(0, 1)).unflatten(0, (m, -1))
+        if self.net_mean is not None:
+            with exact_fp32():
+                y = y + self.net_mean(x)
+        return y
+
+    def _mean_var_program(self, M: int):
+        """(x, draws) -> (sample, mean, var) over M draws: the twin's
+        `_mean_var_program` (:364-398) with the draws as an argument. x is
+        (B, ny, nx, 2) normalised, `draws` yields chunks (m, B) + latent, M
+        draws in all. The sample is the first draw; s and ss sum in float32,
+        draw by draw, as the twin's scan; mean = s / M and var = (ss -
+        M mean^2) / max(M - 1, 1), the twin's formula."""
+        def fn(x, draws):
+            first = s = ss = None
+            n = 0
+            for z in draws:
+                y = self._generate_draws(x, z)
+                if first is None:
+                    first, s, ss = y[0], torch.zeros_like(y[0]), \
+                        torch.zeros_like(y[0])
+                for yj in y:
+                    s += yj
+                    ss += yj * yj
+                n += y.shape[0]
+            if n != M:
+                raise ValueError(f"{n} draws given, {M} expected")
+            mean = s / M
+            var = (ss - M * mean ** 2) / max(M - 1, 1)
+            return first, mean, var
+        return fn
+
+    def _draws(self, generator, M: int, x):
+        """M draws of the latent for the batch x (B, ny, nx, C), in
+        chunks."""
+        B, ny, nx, _ = x.shape
+        return draw_chunks(generator, M, (B,), self.latent_shape(ny, nx),
+                           B * ny * nx)
+
+    def predict(self, ds, M: int = 1000, key: int = 0) -> xr.Dataset:
+        """A sample, the mean and the variance of M draws for each snapshot
+        of `ds`, in batches of 64 snapshots (twin :404-417); the draws come
+        from a generator on the model's device seeded with `key`."""
+        X = self.x_scale.normalize(extract(ds, "q"))
+        fn = self._mean_var_program(M)
+        generator = torch.Generator(device=self.device).manual_seed(int(key))
+        Y, mean, var = apply_in_batches(
+            lambda x: fn(x, self._draws(generator, M, x)), X,
+            batch_size=64, device=self.device)
+        return xr.Dataset({
+            "q_forcing_advection": array_to_dataset(
+                ds, self.y_scale.denormalize(Y), "f"),
+            "q_forcing_advection_mean": array_to_dataset(
+                ds, self.y_scale.denormalize(mean), "m"),
+            "q_forcing_advection_var": array_to_dataset(
+                ds, self.y_scale.denormalize_var(var), "v")})
+
+    def predict_ensemble(self, ds, M: int = 1000, key: int = 0):
+        """M generated forcings of each snapshot, (ens, run, time, lev, y,
+        x), in batches of 16 snapshots (twin :419-436). Member e of snapshot
+        n is a draw for snapshot n; the twin's reshape mixes snapshots
+        (ROADMAP, queue 3)."""
+        X = self.x_scale.normalize(extract(ds, "q"))
+        generator = torch.Generator(device=self.device).manual_seed(int(key))
+
+        def run(x):
+            return torch.cat([self._generate_draws(x, z) for z in
+                              self._draws(generator, M, x)]).movedim(0, 1)
+
+        Y = apply_in_batches(run, X, batch_size=16, device=self.device)
+        q = ds["q"]
+        for d in ("run", "time"):
+            if d not in q.dims:
+                q = q.expand_dims(d)
+        shape = q.transpose("run", "time", "lev", "y", "x").shape
+        arr = np.moveaxis(self.y_scale.denormalize(Y), -1, 2)
+        arr = arr.reshape((shape[0], shape[1], M) + shape[2:]).transpose(
+            2, 0, 1, 3, 4, 5)
+        return xr.DataArray(arr, dims=("ens", "run", "time", "lev", "y", "x"))

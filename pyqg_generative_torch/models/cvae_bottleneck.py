@@ -9,7 +9,9 @@ AndrewCNN decoder reads beside the PV normalised by the saved scaler; with
 is added. The twin runs these nets through XLA with their BatchNorms
 unfolded, so the port runs them through cuDNN under `exact_fp32`. With
 `div=True` the decoder and mean net end in the divergence head. The
-`Downsampling` encoder and training wait for a later slice.
+`Downsampling` encoder and training wait for a later slice. Offline,
+`predict` is the GAN's mean and variance program (twin :140-157) on flat
+latents (M, B, deep_latent), all three nets through cuDNN.
 """
 from __future__ import annotations
 
@@ -113,3 +115,22 @@ class CVAEBottleneck(Parameterization):
             total = total + self.generate(x, z)
         y = total / M * self._y_std
         return lev_from_nhwc(y, batched=batched).to(q.dtype)
+
+    # ---------------------------------------------------------------- offline
+    @torch.no_grad()
+    def _generate_draws(self, x, z):
+        """m draws at once: x (B, ny, nx, 2) normalised, z (m, B,
+        deep_latent) -> (m, B, ny, nx, 2), the m*B images as one batch."""
+        m = z.shape[0]
+        with exact_fp32():
+            zimg = self.deep_decoder(z.flatten(0, 1))
+            xs = x.expand((m,) + tuple(x.shape)).flatten(0, 1)
+            y = self.decoder(torch.cat([xs, zimg], dim=-1)).unflatten(
+                0, (m, -1))
+            if self.net_mean is not None:
+                y = y + self.net_mean(x)
+        return y
+
+    _mean_var_program = CGANRegression._mean_var_program
+    _draws = CGANRegression._draws
+    predict = CGANRegression.predict

@@ -10,9 +10,12 @@ through the wrapper of the kernel that `online_variant` names
 (`ml/fused_conv.py`; "packed" is K2, the whole ensemble in one launch) in
 `inference_dtype`; with `div=True` the chain is 4 wide and its spectral
 divergence follows (`ml.nets.divergence_head`), as the twin's "xla" path
-applies it. `use_optimal_epoch` switches the decoder to
-`decoder_opt.msgpack`, dropping its packed weights. The encoder and training
-wait for a later slice.
+applies it. Offline, `predict` is the GAN's mean and variance program on
+the decoder (twin :224-260), in float32 through a BN-folded chain packed
+for K1 or K2 (`common.offline_variant`; "packed" stays K2).
+`use_optimal_epoch` switches the decoder to `decoder_opt.msgpack`, dropping
+its packed weights, online and offline. The encoder and training wait for a
+later slice.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ from ..ml.nets import AndrewCNN
 from ..ml.weights import params_from_jax, read_msgpack
 from .base import Parameterization, register_model
 from .cgan_regression import CGANRegression
-from .common import lev_from_nhwc, nhwc_from_lev, online_chain, \
-    read_scalers
+from .common import lev_from_nhwc, nhwc_from_lev, offline_variant, \
+    online_chain, read_scalers
 
 __all__ = ["CVAERegression"]
 
@@ -53,6 +56,7 @@ class CVAERegression(Parameterization):
             if regression != "None" else None
         self.vars_dec = None
         self._online_cache = None
+        self._offline_cache = None
         self.load_model(folder)
 
     def load_model(self, folder) -> bool:
@@ -69,6 +73,7 @@ class CVAERegression(Parameterization):
             return False
         self.vars_dec = read_msgpack(path)
         self._online_cache = None
+        self._offline_cache = None
         self.weights_generation += 1
         return True
 
@@ -115,3 +120,18 @@ class CVAERegression(Parameterization):
         """Ensemble mean of M decoder samples, as the twin shares the GAN's
         (CGANRegression.predict_mean_snapshot)."""
         return CGANRegression.predict_mean_snapshot(self, q, M, generator)
+
+    # ---------------------------------------------------------------- offline
+    def _offline_cnn(self):
+        """The decoder's offline forward: its BN-folded chain packed in
+        float32 for the kernel `offline_variant` names."""
+        if self._offline_cache is None:
+            self._offline_cache = online_chain(
+                self.vars_dec, torch.float32,
+                offline_variant(self.online_variant), self.device, self.div)
+        return self._offline_cache
+
+    _generate_draws = CGANRegression._generate_draws
+    _mean_var_program = CGANRegression._mean_var_program
+    _draws = CGANRegression._draws
+    predict = CGANRegression.predict

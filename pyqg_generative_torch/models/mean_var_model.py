@@ -10,13 +10,17 @@ wrapper (`ml/fused_conv.py`) in `inference_dtype`; the softplus head is
 applied outside the kernel. A variant name ending in "pair" (e.g. "dxbpair")
 merges the two nets into one block-diagonal net (`merge_folded_pair`) that
 one kernel call runs; otherwise each net is its own call. The twin's
-`online_backend` switch has no counterpart. Training waits for a later
-slice.
+`online_backend` switch has no counterpart. Offline, `predict` (twin
+:181-197) runs the two nets in float32, each as a BN-folded chain of its own
+through K1 or K2 (`common.offline_variant`), and samples with numpy's
+`default_rng(0)` as the twin does, so that both packages draw the same
+sample. Training waits for a later slice.
 """
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -24,10 +28,14 @@ from ..device import exact_fp32, resolve_device
 from ..ml.fused_conv import compute_dtype_of, make_online_cnn, \
     merge_folded_pair
 from ..ml.nets import AndrewCNN, VarCNN, fold_batchnorm
+from ..ml.train import apply_in_batches
 from ..ml.weights import params_from_jax, read_msgpack
-from .base import Parameterization, register_model
+from ..utils import xrlite as xr
+from .base import Parameterization, array_to_dataset, extract, \
+    register_model
 from .cgan_regression import CGANRegression
-from .common import lev_from_nhwc, nhwc_from_lev, read_scalers
+from .common import lev_from_nhwc, nhwc_from_lev, offline_variant, \
+    read_scalers
 
 __all__ = ["MeanVarModel"]
 
@@ -49,6 +57,7 @@ class MeanVarModel(Parameterization):
         self.vars_mean = None
         self.vars_var = None
         self._online_cache = None
+        self._offline_cache = None
         self.load_model(folder)
 
     def load_model(self, folder) -> bool:
@@ -60,6 +69,7 @@ class MeanVarModel(Parameterization):
         self.net_var.load_state_dict(params_from_jax(self.vars_var))
         read_scalers(self, folder)
         self._online_cache = None
+        self._offline_cache = None
         return True
 
     # ------------------------------------------------------------- inference
@@ -108,3 +118,35 @@ class MeanVarModel(Parameterization):
         with exact_fp32():
             y = self.net_mean(x) * self._y_std
         return lev_from_nhwc(y, batched=batched).to(q.dtype)
+
+    # ---------------------------------------------------------------- offline
+    def _offline_fns(self):
+        """(mean, variance pre-activation): each net BN-folded and packed in
+        float32 for the kernel `offline_variant` names."""
+        if self._offline_cache is None:
+            variant = offline_variant(self.online_variant)
+            self._offline_cache = tuple(
+                make_online_cnn(fold_batchnorm(v), torch.float32,
+                                variant=variant, device=self.device)
+                for v in (self.vars_mean, self.vars_var))
+        return self._offline_cache
+
+    @torch.no_grad()
+    def predict(self, ds, M: int = 1000) -> xr.Dataset:
+        """The conditional mean and variance of each snapshot, in batches of
+        64, and a sample mean + sqrt(var) eps with eps from numpy's
+        `default_rng(0)` (twin :181-197)."""
+        X = self.x_scale.normalize(extract(ds, "q"))
+        f_mean, f_var = self._offline_fns()
+        mean = self.y_scale.denormalize(apply_in_batches(
+            f_mean, X, device=self.device))
+        var = self.y_scale.denormalize_var(apply_in_batches(
+            lambda x: F.softplus(f_var(x)), X, device=self.device))
+        rng = np.random.default_rng(0)
+        Y = mean + np.sqrt(var) * rng.standard_normal(var.shape).astype(
+            "float32")
+        return xr.Dataset({
+            "q_forcing_advection": array_to_dataset(ds, Y,
+                                                    "q_forcing_advection"),
+            "q_forcing_advection_mean": array_to_dataset(ds, mean, "m"),
+            "q_forcing_advection_var": array_to_dataset(ds, var, "v")})

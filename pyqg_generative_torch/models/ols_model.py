@@ -4,8 +4,8 @@ Twin of the online half of `pyqg_generative_tpu/models/ols_model.py`
 (:25-42, :67-92): an AndrewCNN with the options `batch_norm`, `bias`,
 `final_activation` and `div`, on the PV normalised by the saved scaler; zero
 predicted variance. The twin runs it through XLA with its BatchNorms
-unfolded, so the port runs it through cuDNN under `exact_fp32`. Training
-waits for a later slice.
+unfolded, so the port runs it through cuDNN under `exact_fp32`, online and
+in the offline `predict` (twin :93-104). Training waits for a later slice.
 """
 from __future__ import annotations
 
@@ -15,8 +15,11 @@ import torch
 
 from ..device import exact_fp32, resolve_device
 from ..ml.nets import AndrewCNN
+from ..ml.train import apply_in_batches
 from ..ml.weights import params_from_jax, read_msgpack
-from .base import Parameterization, register_model
+from ..utils import xrlite as xr
+from .base import Parameterization, array_to_dataset, extract, \
+    register_model
 from .common import lev_from_nhwc, nhwc_from_lev, read_scalers
 
 __all__ = ["OLSModel"]
@@ -64,3 +67,20 @@ class OLSModel(Parameterization):
 
     def predict_mean_snapshot(self, q, M: int = 100):
         return self.predict_snapshot(q)
+
+    @torch.no_grad()
+    def predict(self, ds, M: int = 1000) -> xr.Dataset:
+        """The prediction of each snapshot, in batches of 64, as sample and
+        mean, with zero variance (twin :93-104)."""
+        X = self.x_scale.normalize(extract(ds, "q"))
+
+        def apply(x):
+            with exact_fp32():
+                return self.net(x)
+
+        Y = self.y_scale.denormalize(apply_in_batches(apply, X,
+                                                      device=self.device))
+        da = array_to_dataset(ds, Y, "q_forcing_advection")
+        return xr.Dataset({"q_forcing_advection": da,
+                           "q_forcing_advection_mean": da,
+                           "q_forcing_advection_var": da * 0})

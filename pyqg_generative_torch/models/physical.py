@@ -12,11 +12,13 @@ twin vmaps one member), so the backscatter's energy budget is summed over
 the level axis (-3) and averaged over each member's grid; and the grid
 constants (ik, il, wv2, dx), which the twin builds per call, are built once
 per (grid, device, dtype) (`_consts`), so that a captured step copies no
-array to the card. The offline `predict` on datasets waits for the
-evaluation slice.
+array to the card. The offline `predict` (twin :82-104) reads the DNS's
+parameters off the dataset's `pyqg_params` attribute and computes every
+snapshot at once, in their precision, on the closure's device.
 """
 from __future__ import annotations
 
+import ast
 from functools import lru_cache
 from types import SimpleNamespace
 
@@ -28,6 +30,7 @@ from ..qg import core
 from ..qg.grid import make_grid
 from ..qg.operators import advect, gauss_filter
 from ..qg.params import QGParams
+from ..utils import xrlite as xr
 from .base import Parameterization, register_model
 
 __all__ = ["PhysicalParameterization", "ZannaBolton2020", "Smagorinsky",
@@ -123,6 +126,33 @@ class PhysicalParameterization(Parameterization):
 
     def predict_mean_snapshot(self, q, M: int = 100):
         return self.predict_snapshot(q)
+
+    def _params_from_ds(self, ds: xr.Dataset, nx: int) -> QGParams:
+        """The run's parameters (the dataset's `pyqg_params`) on an nx
+        grid."""
+        attrs = ds.attrs.get("pyqg_params", "{}")
+        d = ast.literal_eval(attrs) if isinstance(attrs, str) else dict(attrs)
+        d["nx"] = nx
+        d["ny"] = None
+        return QGParams.from_dict(d)
+
+    def predict(self, ds: xr.Dataset, M: int = 1000) -> xr.Dataset:
+        """The forcing of every snapshot of `ds`, as sample and mean, with
+        zero variance (twin :89-104)."""
+        var = ds["q"]
+        for d in ("run", "time"):
+            if d not in var.dims:
+                var = var.expand_dims(d)
+        v = var.transpose("run", "time", "lev", "y", "x")
+        nx = v.shape[-1]
+        p = self._params_from_ds(ds, nx)
+        q = torch.as_tensor(v.values.reshape(-1, 2, v.shape[-2], nx),
+                            dtype=torch.float32, device=self.device)
+        Y = self.predict_snapshot(q, p=p).cpu().numpy().reshape(v.shape)
+        da = xr.DataArray(Y, dims=v.dims)
+        return xr.Dataset({"q_forcing_advection": da,
+                           "q_forcing_advection_mean": da,
+                           "q_forcing_advection_var": da * 0})
 
 
 @register_model

@@ -9,12 +9,18 @@ gate and the AB3 start are host branches on the shared step counter, so the
 loop never waits on the device. On a card every driver advances its steps
 through `graph.GraphedStep`, which replays each branch's step from a
 captured CUDA graph (the twin's one program); on the CPU, which the caller
-asks for, the eager step runs. Forcing-data generation waits for a later
-slice.
+asks for, the eager step runs.
+
+Forcing data (twin :335-436): a closure-free DNS whose steps between
+snapshots replay a captured graph on a card, and at each snapshot the
+coarse-graining operators and `PV_subgrid_forcing`, run eagerly, since
+their transfer functions are built at first use, which no capture may do.
+`generate_subgrid_forcing_batch` runs its members as one leading batch
+axis, as `run_ensemble` does.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +28,7 @@ import torch
 from ..device import resolve_device
 from ..qg import core, diagnostics
 from ..qg.grid import make_grid
+from ..qg.operators import OPERATORS, PV_subgrid_forcing
 from ..qg.params import ANDREW_1000_STEPS, DAY, QGParams
 from ..utils import xrlite as xr
 from . import graph
@@ -29,7 +36,8 @@ from .stochastic import init_sampler, sample_forcing
 
 __all__ = ["run_simulation", "run_ensemble", "run_ensemble_segmented",
            "set_initial_condition", "make_online_step", "init_run_carry",
-           "advance_run", "run_with_snapshots"]
+           "advance_run", "run_with_snapshots", "generate_subgrid_forcing",
+           "generate_subgrid_forcing_batch"]
 
 
 def set_initial_condition(p: QGParams, key: int = 0) -> torch.Tensor:
@@ -320,3 +328,98 @@ def run_ensemble_segmented(pyqg_params: QGParams, parameterization=None,
               for k in seg_snaps[0]}
     return _build_dataset(merged, _to_numpy(diags), p,
                           steps_per_snap * p.dt, n_snaps, run_dim=True)
+
+
+def _forcing_program(Nc: Sequence[int], p: QGParams, sampling_freq: float,
+                     operators: Sequence[str], dealias: str):
+    """The DNS and its per-snapshot coarse-graining, shared by the single
+    run and the batch. Returns (program(q0 (..., 2, ny, nx), device) ->
+    {combo: {var: (..., time, lev, y, x) float32 numpy}}, n_snaps,
+    steps_per_snap)."""
+    steps_per_snap, n_snaps = _snap_counts(p, sampling_freq)
+    rdt = core.dtypes(p)[0]
+
+    def program(q0, device):
+        carry = (core.init_state(q0, p, device=device), None, None)
+        if carry[0].qh.is_cuda:
+            step = graph.GraphedStep(p, None, with_diags=False)
+        else:
+            step = make_online_step(p, None, with_diags=False)
+        outs = {}
+        for _ in range(n_snaps):
+            for _ in range(steps_per_snap):
+                carry = step(carry)
+            q = core.irfft2(carry[0].qh, p.ny_, p.nx).to(rdt)
+            for op_name in operators:
+                op = OPERATORS[op_name]
+                for nc in Nc:
+                    S, (qc, uc, vc, psic) = PV_subgrid_forcing(
+                        q, nc, op, p, dealias)
+                    snap = {"q_forcing_advection": S, "q": qc, "u": uc,
+                            "v": vc, "psi": psic}
+                    combo = outs.setdefault(f"{op_name}-{nc}-dealias", {})
+                    for k, v in snap.items():
+                        combo.setdefault(k, []).append(v.to(torch.float32))
+        return {c: {k: torch.stack(v, dim=-4).cpu().numpy()
+                    for k, v in d.items()} for c, d in outs.items()}
+
+    return program, n_snaps, steps_per_snap
+
+
+def _forcing_to_datasets(outs: dict, p: QGParams, n_snaps: int,
+                         steps_per_snap: int) -> dict:
+    time_days = (np.arange(1, n_snaps + 1) * steps_per_snap * p.dt) / DAY
+    result = {}
+    for cname, data in outs.items():
+        nc = int(cname.split("-")[1])
+        pc = p.replace(nx=nc, ny=None)
+        coords = _grid_coords(pc)
+        ds = xr.Dataset(attrs={"pyqg_params": str(p.to_dict())})
+        for vname, arr in data.items():
+            ds[vname] = xr.DataArray(np.asarray(arr),
+                                     ("time", "lev", "y", "x"),
+                                     {"time": time_days, **coords})
+        ds["time"] = xr.DataArray(time_days, ("time",),
+                                  attrs={"units": "days"})
+        result[cname] = ds
+    return result
+
+
+def generate_subgrid_forcing(Nc: Sequence[int], pyqg_params: QGParams,
+                             sampling_freq: float = ANDREW_1000_STEPS,
+                             operators: Sequence[str] = ("Operator2",
+                                                         "Operator5"),
+                             dealias: str = "3/2-rule",
+                             key: int = 0, device=None) -> dict:
+    """Run the DNS from `set_initial_condition(p, key)` and emit one
+    training dataset of (S, q̄, ū, v̄, ψ̄) per (operator, resolution), keyed
+    "{operator}-{nc}-dealias" (reference tools/simulate.py:62-106).
+    `device=None` means CUDA."""
+    p = pyqg_params
+    device = resolve_device(device)
+    program, n_snaps, steps_per_snap = _forcing_program(
+        Nc, p, sampling_freq, operators, dealias)
+    outs = program(set_initial_condition(p, key), device)
+    return _forcing_to_datasets(outs, p, n_snaps, steps_per_snap)
+
+
+def generate_subgrid_forcing_batch(Nc: Sequence[int],
+                                   pyqg_params: QGParams,
+                                   sampling_freq: float = ANDREW_1000_STEPS,
+                                   operators: Sequence[str] = ("Operator2",
+                                                               "Operator5"),
+                                   dealias: str = "3/2-rule",
+                                   keys: Sequence[int] = (0,),
+                                   device=None) -> list:
+    """`generate_subgrid_forcing` for one member a key, the members
+    advanced together on a leading batch axis; a list of per-key dicts,
+    each laid out as the single run's. `device=None` means CUDA."""
+    p = pyqg_params
+    device = resolve_device(device)
+    program, n_snaps, steps_per_snap = _forcing_program(
+        Nc, p, sampling_freq, operators, dealias)
+    q0 = torch.stack([set_initial_condition(p, k) for k in keys])
+    outs = program(q0, device)
+    return [_forcing_to_datasets(
+        {c: {v: a[j] for v, a in d.items()} for c, d in outs.items()},
+        p, n_snaps, steps_per_snap) for j in range(len(keys))]

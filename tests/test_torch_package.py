@@ -23,10 +23,15 @@ from pyqg_generative_torch.models import ANNModel, CGANRegression, \
     Parameterization, load_model, physical, save_model_args, save_variables
 from pyqg_generative_torch.qg import core
 from pyqg_generative_torch.qg.params import QGParams
-from pyqg_generative_torch.sim import advance_run, graph, \
+from pyqg_generative_torch.entry import entry
+from pyqg_generative_torch.eval.comparison import \
+    coarsegrain_reference_dataset
+from pyqg_generative_torch.sim import advance_run, \
+    generate_subgrid_forcing, generate_subgrid_forcing_batch, graph, \
     init_run_carry, make_online_step, run_ensemble, \
     run_ensemble_segmented, run_simulation, run_with_snapshots, simulate
 from pyqg_generative_torch.sim.stochastic import init_sampler
+from pyqg_generative_torch.utils import xrlite as xr
 
 torch.set_num_threads(1)
 
@@ -58,7 +63,9 @@ def test_no_jax_imports():
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ("qg/operators", "models/physical", "models/ann_model",
                    "models/ols_model", "models/cvae_bottleneck",
-                   "ml/weights", "ml/nets"):
+                   "ml/weights", "ml/nets", "ml/train", "qg/spectral",
+                   "eval/__init__", "eval/comparison", "eval/metrics",
+                   "eval/forecast", "entry"):
         assert f"pyqg_generative_torch/{module}.py" in names
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
@@ -77,6 +84,10 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     folded = {"params": {f"Conv_{i}": {"kernel": np.ones((3, 3, 2, 2)),
                                        "bias": np.zeros(2)}
                          for i in range(2)}}
+    reference = xr.Dataset()
+    for k in ("q", "u", "v", "psi"):
+        reference[k] = xr.DataArray(np.zeros((1, 2, 16, 16), np.float32),
+                                    ("time", "lev", "y", "x"))
     closures = [getattr(physical, n) for n in physical.__all__
                 if n != "PhysicalParameterization"]
     assert len(closures) == 11
@@ -102,7 +113,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
              lambda: core.init_state(np.zeros((2, 16, 16)), p),
              lambda: init_sampler(0, Parameterization(), 16, 16,
                                   torch.float32),
-             lambda: fused_conv.make_online_cnn(folded)]
+             lambda: fused_conv.make_online_cnn(folded),
+             lambda: generate_subgrid_forcing([8], p, sampling_freq=14400.0),
+             lambda: generate_subgrid_forcing_batch([8], p,
+                                                    sampling_freq=14400.0),
+             lambda: coarsegrain_reference_dataset(reference, 8,
+                                                   "Operator2"),
+             lambda: entry()]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -804,3 +821,84 @@ def test_graphed_step_recaptures_after_switch_on_card():
     assert recaptured >= 1 and step._generation == step.model \
         .weights_generation
     assert torch.equal(graphed, eager)
+
+
+def _program_inputs(model, nx, B=3, M=8):
+    """Seeded normalised PV (B, nx, nx, 2) and M latent draws, on the
+    CPU."""
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((B, nx, nx, 2)).astype(np.float32)
+    zs = rng.standard_normal((M, B) + tuple(model.latent_shape(nx, nx))
+                             ).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(zs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gan", "gan_bf16", "vae_packed", "gz"])
+def test_offline_predict_on_card_matches_cpu(case):
+    """Each CNN closure's offline program on the card against the same on
+    the CPU (the kernels' plain versions): the GAN (K1 in float32, also for
+    a model whose online dtype is bf16) and the VAE with "packed" (K2) by
+    their mean and variance over 8 draws handed to both, in chunks of 3, 3
+    and 2 (chunks of 3 x 3 = 9 images through the kernel); the GZ by its
+    `predict` on a dataset (K1 on each net, its numpy sample). rtol 2e-4 /
+    atol 2e-5*max|ref|, float32 sums in another order; the variance's atol
+    is that of the mean squared, which its formula cancels."""
+    _need_card()
+    folder, kw, count = {
+        "gan": (FOLDER, {}, "launches"),
+        "gan_bf16": (FOLDER, {"inference_dtype": "bfloat16"}, "launches"),
+        "vae_packed": (VAE, VAE_PATH, "launches_packed"),
+        "gz": (GZ, GZ_PATH, "launches")}[case]
+    card = load_model(folder, device="cuda", **kw)
+    cpu = load_model(folder, device="cpu", **kw)
+    before = getattr(fused_conv, count)
+    if case == "gz":
+        ds = xr.Dataset()
+        q = np.random.default_rng(22).standard_normal((2, 3, 2, 16, 16))
+        ds["q"] = xr.DataArray((1e-5 * q).astype(np.float32),
+                               ("run", "time", "lev", "y", "x"))
+        out, ref = card.predict(ds), cpu.predict(ds)
+        torch.cuda.synchronize()
+        assert getattr(fused_conv, count) == before + 2
+        pairs = [(out[k].values, ref[k].values) for k in ref.keys()]
+    else:
+        x, zs = _program_inputs(cpu, 16)
+        chunks = ((0, 3), (3, 6), (6, 8))
+        out = card._mean_var_program(8)(
+            x.cuda(), [zs[a:b].cuda() for a, b in chunks])
+        ref = cpu._mean_var_program(8)(x, [zs[a:b] for a, b in chunks])
+        torch.cuda.synchronize()
+        assert getattr(fused_conv, count) == before + 3
+        pairs = [(o.cpu().numpy(), r.numpy()) for o, r in zip(out, ref)]
+        pairs[2] = (pairs[2][0], pairs[2][1], np.max(pairs[1][1] ** 2))
+    for pair in pairs:
+        o, r = pair[:2]
+        scale = pair[2] if len(pair) == 3 else np.abs(r).max()
+        np.testing.assert_allclose(o, r, rtol=2e-4, atol=2e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_forcing_graphed_dns_equals_eager_on_card(monkeypatch):
+    """The forcing generator on the card replays captured graphs of its DNS
+    steps, and its datasets equal those of the same run with the eager step
+    in place of the graph, bitwise: 32^2 in float64 (the twin's test
+    precision), 2 snapshots of 10 steps, Operator2 and Operator5 to 16^2."""
+    _need_card()
+    p = QGParams(nx=32, dt=3600.0, tmax=20 * 3600.0, precision="double")
+    replayed = graph.replayed_steps
+    graphed = generate_subgrid_forcing([16], p, sampling_freq=10 * 3600.0,
+                                       device="cuda")
+    assert graph.replayed_steps - replayed >= 10
+    monkeypatch.setattr(simulate.graph, "GraphedStep",
+                        lambda p, model, with_diags: make_online_step(
+                            p, model, with_diags=with_diags))
+    eager = generate_subgrid_forcing([16], p, sampling_freq=10 * 3600.0,
+                                     device="cuda")
+    assert sorted(graphed) == sorted(eager) == ["Operator2-16-dealias",
+                                                "Operator5-16-dealias"]
+    for combo in eager:
+        for k in eager[combo].keys():
+            np.testing.assert_array_equal(graphed[combo][k].values,
+                                          eager[combo][k].values,
+                                          err_msg=f"{combo} {k}")
