@@ -202,6 +202,25 @@ REDUCED = ("one DNS run of 2,000 steps at 256^2 (2 snapshots of 1,000 "
            "steps), where the pipeline runs 300 of 87,600 "
            "(exp/pipeline.py:43-57); the online runs for the same 83.3 "
            "days; widths, grids and M = 1000 as published")
+# phase 11: training. The data are the eddy DNS at DNS_NX^2, TRAIN_MEMBERS
+# + TEST_MEMBERS members of TRAIN_SNAPS snapshots every TRAIN_SNAP_STEPS
+# steps, coarse-grained by Operator1 to NX^2 (640 training and 128 test
+# snapshots); each closure trains TRAIN_EPOCHS epochs at batch TRAIN_BATCH
+# into TRAIN_DIR and is scored offline at M = TRAIN_M; the card-vs-CPU
+# step takes CARD_CPU_BATCH snapshots of developed flow, after
+# SPINUP_SNAPS x 1,000 DNS steps; a training step is timed over
+# TIMED_STEPS batches and traced over TRACED_STEPS
+TRAIN_MEMBERS, TEST_MEMBERS, TRAIN_SNAPS, TRAIN_SNAP_STEPS = 40, 8, 16, 100
+TRAIN_EPOCHS, TRAIN_BATCH, TRAIN_M, CARD_CPU_BATCH = 2, 64, 64, 8
+SPINUP_SNAPS = 40  # of 1,000 DNS steps before the card-vs-CPU snapshots
+TIMED_STEPS, TRACED_STEPS = 10, 5
+TRAIN_DIR = ROOT / "build" / "phase11_models"
+REDUCED_11 = ("the training data from 48 members of a 1,600-step 256^2 DNS "
+              "(640 + 128 snapshots every 100 steps from the initial "
+              "condition), where the pipeline takes 300 runs of 87,600 "
+              "steps (exp/pipeline.py:43-57); 2 epochs, where the paper "
+              "trains 200 (50 for the regression nets); M = 64 offline; "
+              "widths, grids, batch 64 and the rates as published")
 COUNTS = ("launches", "launches_bf16", "launches_packed", "launches_probe")
 LIBRARIES = ("fused_conv", "packed_chain", "bitcast_probe")
 # peak rates and memory rate of one H100 SXM (NVIDIA data sheet, 700 W):
@@ -1557,6 +1576,510 @@ def scoring_path(fused_conv, graph, rows, smi):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: training
+# --------------------------------------------------------------------------
+
+def training_data(fused_conv, graph, smi):
+    """Phase 11's forcing data: the eddy DNS at DNS_NX^2 for TRAIN_MEMBERS +
+    TEST_MEMBERS members advanced together, coarse-grained by Operator1 to
+    NX^2 every TRAIN_SNAP_STEPS steps, TRAIN_SNAPS snapshots a member; the
+    first TRAIN_MEMBERS members train, the rest test. Returns (ds_train,
+    ds_test, readings)."""
+    from pyqg_generative_torch.qg.params import EDDY_PARAMS
+    from pyqg_generative_torch.sim import generate_subgrid_forcing_batch
+    from pyqg_generative_torch.utils import xrlite as xr
+    p = EDDY_PARAMS.with_nx(DNS_NX)
+    p = p.replace(tmax=TRAIN_SNAPS * TRAIN_SNAP_STEPS * p.dt)
+    members = TRAIN_MEMBERS + TEST_MEMBERS
+    set_counts(fused_conv, graph)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = generate_subgrid_forcing_batch(
+        [NX], p, TRAIN_SNAP_STEPS * p.dt, ("Operator1",),
+        keys=range(100, 100 + members), device=DEV)
+    seconds = time.perf_counter() - t0
+    counts, gsteps = read_counts(fused_conv, graph)
+    steps = TRAIN_SNAPS * TRAIN_SNAP_STEPS
+    if any(counts.values()) or gsteps["eager_steps"] + \
+            gsteps["replayed_steps"] != steps:
+        raise AssertionError(f"phase 11 DNS: launch counts {counts}, graph "
+                             f"counts {gsteps} for {steps} steps")
+
+    def stack(part):
+        ds = xr.Dataset()
+        for k in ("q", "q_forcing_advection", "u", "v", "psi"):
+            v = np.stack([r[f"Operator1-{NX}-dealias"][k].values
+                          for r in part])
+            if v.shape != (len(part), TRAIN_SNAPS, 2, NX, NX) or \
+                    not np.isfinite(v).all():
+                raise AssertionError(f"phase 11 data {k}: {v.shape}")
+            ds[k] = xr.DataArray(v, ("run", "time", "lev", "y", "x"))
+        return ds
+
+    ds_train, ds_test = stack(runs[:TRAIN_MEMBERS]), stack(
+        runs[TRAIN_MEMBERS:])
+    readings = {"members": members, "snapshots_train": TRAIN_MEMBERS
+                * TRAIN_SNAPS, "snapshots_test": TEST_MEMBERS * TRAIN_SNAPS,
+                "dns_steps": steps, "seconds": seconds,
+                "dns_member_steps_per_s": members * steps / seconds,
+                "graph_counts": gsteps}
+    log(f"phase 11, data: a {DNS_NX}^2 eddy DNS of {members} members x "
+        f"{steps} steps (dt {p.dt:g} s), Operator1 to {NX}^2 every "
+        f"{TRAIN_SNAP_STEPS} steps: {readings['snapshots_train']} training "
+        f"and {readings['snapshots_test']} test snapshots in {seconds:.3f} "
+        f"s, {readings['dns_member_steps_per_s']:.1f} member-steps/s on "
+        f"{smi}")
+    return ds_train, ds_test, readings
+
+
+def closures_to_train():
+    """Phase 11's closures at the committed models' widths (128/64/32x5,
+    nx 64) and the paper's rates: name -> (make(folder) -> model, fit's
+    arguments, load_model's overrides, its stats files)."""
+    from pyqg_generative_torch.models import ANNModel, CGANRegression, \
+        CVAEBottleneck, CVAERegression, MeanVarModel, OLSModel
+    common = dict(num_epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH)
+    gen = dict(common, learning_rate=2e-4, nruns=2, key=0)
+    reg = dict(common, learning_rate=1e-3)
+    return {
+        "gan": (lambda f: CGANRegression(nx=NX, folder=f, device=DEV),
+                dict(gen, retain_every=1), {}, ("stats.npz",)),
+        "vae": (lambda f: CVAERegression(folder=f, online_variant="packed",
+                                         device=DEV),
+                gen, {"online_variant": "packed"}, ("stats.npz",)),
+        "bottleneck": (lambda f: CVAEBottleneck(nx=NX, folder=f,
+                                                device=DEV),
+                       dict(gen, num_epochs_regression=TRAIN_EPOCHS), {},
+                       ("stats.npz",)),
+        "gz": (lambda f: MeanVarModel(folder=f, device=DEV), reg, {},
+               ("stats_mean.npz", "stats_var.npz")),
+        "ols": (lambda f: OLSModel(folder=f, device=DEV), reg, {},
+                ("stats.npz",)),
+        "ann": (lambda f: ANNModel(folder=f, device=DEV),
+                dict(num_epochs=TRAIN_EPOCHS, learning_rate=1e-3), {},
+                ("stats.npz",)),
+    }
+
+
+def train_every_closure(fused_conv, graph, ds_train, ds_test, smi):
+    """Phase 11, part 1: each closure trained by fit for TRAIN_EPOCHS
+    epochs at batch TRAIN_BATCH into TRAIN_DIR/<name>, its logged losses
+    finite (the GAN's and the VAEs' with L2_total_test), its folder loaded
+    by load_model and scored by test_offline at M = TRAIN_M on the test
+    snapshots. Returns the readings and the trained GAN."""
+    import shutil
+
+    from pyqg_generative_torch.models import load_model
+    from pyqg_generative_torch.utils import xrlite as xr
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    readings, gan = {}, None
+    for name, (make, fit_kw, overrides, stats) in \
+            closures_to_train().items():
+        folder = str(TRAIN_DIR / name)
+        set_counts(fused_conv, graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = make(folder)
+        model.fit(ds_train, ds_test, **fit_kw)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts(fused_conv, graph)[0]
+        logged = {}
+        for f in stats:
+            log_ds = xr.Dataset.from_npz(f"{folder}/{f}")
+            for k in log_ds.keys():
+                v = np.asarray(log_ds[k].values, float)
+                if not np.isfinite(v).all():
+                    raise AssertionError(f"phase 11 {name}: {f} {k} {v}")
+                logged[f"{f[:-4]}/{k}"] = v.tolist()
+        if name in ("gan", "vae", "bottleneck") and \
+                "stats/L2_total_test" not in logged:
+            raise AssertionError(f"phase 11 {name}: no L2_total_test")
+        t0 = time.perf_counter()
+        loaded = load_model(folder, device=DEV, **overrides)
+        offline = loaded.test_offline(ds_test, TRAIN_M)
+        torch.cuda.synchronize()
+        offline_s = time.perf_counter() - t0
+        launches = read_counts(fused_conv, graph)[0]
+        scores = {k: float(np.mean(offline[k].values))
+                  for k in ("L2_mean", "L2_total", "L2_residual")}
+        if not all(np.isfinite(v) for v in scores.values()):
+            raise AssertionError(f"phase 11 {name}: test_offline {scores}")
+        readings[name] = {"fit_seconds": fit_s, "launches_in_fit": counts,
+                          "launches": launches,
+                          "log": logged, "test_offline_seconds": offline_s,
+                          "test_offline": scores}
+        log(f"phase 11, {name}: fit {TRAIN_EPOCHS} epochs at batch "
+            f"{TRAIN_BATCH} in {fit_s:.2f} s (launches {counts}); "
+            "last epoch " + ", ".join(f"{k} {v[-1]:.4g}" for k, v in
+                                      logged.items() if "loss" in k
+                                      or "L2_total" in k)
+            + f"; test_offline at M = {TRAIN_M} in {offline_s:.2f} s: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in scores.items())
+            + f" on {smi}")
+        if name == "gan":
+            gan = model
+    return readings, gan
+
+
+def _term_scales(ref: dict) -> dict:
+    """The scale each gradient tensor of a float64 step is measured at: its
+    RMS, and for a bias the larger of its RMS and its layer's weight
+    gradient's. A bias's gradient is a sum of per-pixel terms of the size
+    of its weight gradient's; where a later train-mode BatchNorm subtracts
+    the channel's shift again (the ReLU between passing the channel almost
+    everywhere over the batch), the sum cancels, to its terms' rounding
+    where the ReLU passes every pixel."""
+    out = {}
+    for k, g in ref.items():
+        w = ref.get(k[:-len("bias")] + "weight") if k.endswith(".bias") \
+            else None
+        rms = float((g ** 2).mean().sqrt())
+        out[k] = rms if w is None else max(rms, float((w ** 2).mean().sqrt()))
+    return out
+
+
+def developed_snapshots():
+    """CARD_CPU_BATCH snapshots of developed eddy flow at NX^2: a DNS_NX^2
+    eddy DNS run for SPINUP_SNAPS + CARD_CPU_BATCH snapshots of 1,000
+    steps (5.5 years at dt 3,600 s, past the configuration's 5-year
+    spin-up), coarse-grained by Operator1; the last CARD_CPU_BATCH."""
+    from pyqg_generative_torch.qg.params import ANDREW_1000_STEPS, \
+        EDDY_PARAMS
+    from pyqg_generative_torch.sim import generate_subgrid_forcing
+    n = SPINUP_SNAPS + CARD_CPU_BATCH
+    p = EDDY_PARAMS.with_nx(DNS_NX).replace(tmax=n * ANDREW_1000_STEPS)
+    ds = generate_subgrid_forcing([NX], p, ANDREW_1000_STEPS, ("Operator1",),
+                                  device=DEV)[f"Operator1-{NX}-dealias"]
+    return ds.isel(time=np.arange(SPINUP_SNAPS, n))
+
+
+def card_vs_cpu_steps(smi):
+    """Phase 11, part 2: from the committed r4_eddy_gan_64_op1_s0 (G and D)
+    and r4_eddy_vae_64_op1_s0 (encoder and decoder), one batch step of
+    CARD_CPU_BATCH snapshots of developed flow (`developed_snapshots`,
+    normalised by the model's own scalers, as it was trained) on the card
+    in float32 against the CPU in float64, on the same draws: the GAN's
+    critic and generator at i = 0, the VAE's loss; each loss to relative
+    1e-5, each gradient tensor to relative RMS 1e-4 of float64. Where
+    float32 itself cannot get there, the card is held as the scoring path
+    holds its cancellations (PR 10): a bias is measured at the scale of
+    its per-pixel terms (`_term_scales`), and a tensor that the CPU's own
+    float32 step misses by more than half the bar is held no further from
+    float64 than twice the CPU's float32."""
+    from pyqg_generative_torch.device import exact_fp32_training
+    from pyqg_generative_torch.ml.train import named_params
+    from pyqg_generative_torch.models import base, load_model
+    from pyqg_generative_torch.models import cgan_regression as gan
+    from pyqg_generative_torch.models import cvae_regression as vae
+    t0 = time.perf_counter()
+    ds = developed_snapshots()
+    log(f"phase 11, {CARD_CPU_BATCH} snapshots of developed flow after "
+        f"{SPINUP_SNAPS},000 DNS steps at {DNS_NX}^2 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    q, f = (base.extract(ds, k) for k in ("q", "q_forcing_advection"))
+    shape = q.shape
+    g = torch.Generator().manual_seed(11)
+    z = [torch.randn(shape, generator=g, dtype=torch.float64)
+         for _ in range(2)]
+    eps_gp = torch.rand((CARD_CPU_BATCH, 1, 1, 1), generator=g,
+                        dtype=torch.float64)
+    eps_vae = torch.randn(shape, generator=g, dtype=torch.float64)
+    runs = {"card": (DEV, torch.float32), "cpu32": ("cpu", torch.float32),
+            "cpu64": ("cpu", torch.float64)}
+    readings = {}
+    for name in ("gan", "vae"):
+        out = {}
+        for run, (dev, dtype) in runs.items():
+            folder = str(MODELS / {"gan": "r4_eddy_gan_64_op1_s0",
+                                   "vae": "r4_eddy_vae_64_op1_s0"}[name])
+            m = load_model(folder, device=dev)
+            x, y = m.x_scale.normalize(q), m.y_scale.normalize(f)
+
+            def t(a):
+                return torch.as_tensor(a, device=dev).to(dtype)
+            batch = (t(x), t(y), torch.zeros_like(t(x)))
+            if name == "gan":
+                m.G.to(dtype)
+                m.D.to(dtype)
+                txG, txD = gan.gan_optimizers(2e-4, 2, 10)
+                opt = {"G": txG.init(named_params(m.G)),
+                       "D": txD.init(named_params(m.D))}
+                grads = {}
+                metrics = gan.make_gan_batch_step(m, txG, txD)(
+                    opt, batch, 0, (t(z[0]), t(z[1]), t(eps_gp),
+                                    torch.tensor(True, device=dev)), grads)
+                flat = {f"{k}.{n}": v for k in ("D", "G")
+                        for n, v in grads[k].items()}
+            else:
+                m.encoder.to(dtype)
+                m.decoder.to(dtype)
+                params = vae.vae_params(m)
+                with exact_fp32_training():
+                    loss, metrics = vae.make_vae_loss(m)(
+                        *batch, t(eps_vae), True)
+                    flat = dict(zip(params, torch.autograd.grad(
+                        loss, list(params.values()))))
+            out[run] = ({k: float(v.detach()) for k, v in metrics.items()},
+                        {k: v.detach().double().cpu()
+                         for k, v in flat.items()})
+        (mc, gc), (_, g32), (mr, gr) = out["card"], out["cpu32"], \
+            out["cpu64"]
+        loss_err = {k: abs(mc[k] / mr[k] - 1) for k in mr if mr[k] != 0}
+        scales = _term_scales(gr)
+        grad_err, cpu_err, bars = {}, {}, {}
+        for k, g_ in gr.items():
+            grad_err[k] = float(((gc[k] - g_) ** 2).mean().sqrt()) / scales[k]
+            cpu_err[k] = float(((g32[k] - g_) ** 2).mean().sqrt()) / scales[k]
+            bars[k] = max(1e-4, 2 * cpu_err[k])
+        failed = {k: (grad_err[k], bars[k]) for k in gr
+                  if not grad_err[k] <= bars[k]}
+        worst = max(grad_err, key=lambda k: grad_err[k] / bars[k])
+        at_terms = [k for k, g_ in gr.items()
+                    if scales[k] > float((g_ ** 2).mean().sqrt())]
+        ill = {k: (grad_err[k], cpu_err[k]) for k in gr if bars[k] > 1e-4}
+        readings[name] = {"losses_card": mc, "losses_cpu": mr,
+                          "loss_rel_err": loss_err,
+                          "grad_rel_rms": grad_err,
+                          "grad_rel_rms_cpu_float32": cpu_err,
+                          "grad_worst": worst, "biases_at_terms": at_terms,
+                          "float32_ill_conditioned": ill}
+        log(f"phase 11, {name} batch step of {CARD_CPU_BATCH} from the "
+            "committed weights, card float32 vs CPU float64: loss relative "
+            "errors " + ", ".join(f"{k} {v:.3e}" for k, v in loss_err.items())
+            + f"; gradients' relative RMS up to {grad_err[worst]:.3e} "
+            f"({worst}, bar {bars[worst]:.1e}); {len(at_terms)} of "
+            f"{len(gr)} biases measured at their terms' scale ("
+            + ", ".join(at_terms) + "); where the CPU's float32 misses "
+            "float64 by more than 5e-5 (card, CPU float32): "
+            + (", ".join(f"{k} {a:.3e} {b:.3e}" for k, (a, b) in
+                         ill.items()) or "none") + f"; on {smi}")
+        bad = {k: v for k, v in loss_err.items() if not v <= 1e-5}
+        if bad or failed:
+            raise AssertionError(f"phase 11 {name} card vs CPU: losses "
+                                 f"{bad}, gradients {failed}")
+    return readings
+
+
+def resume_on_card(fused_conv, graph, ds_train, ds_test, smi):
+    """Phase 11, part 3: a GAN at full width trained for 2 epochs, and one
+    interrupted after its epoch-1 checkpoint and resumed by a fresh model
+    on its folder, end with bitwise-equal G and D. Returns the readings
+    with the launch counts of the three runs."""
+    from pyqg_generative_torch.ml import train
+    from pyqg_generative_torch.models import CGANRegression
+    kw = dict(num_epochs=2, batch_size=TRAIN_BATCH, nruns=2, key=1,
+              checkpoint_every=1, verbose=False)
+    set_counts(fused_conv, graph)
+    t0 = time.perf_counter()
+    ref = CGANRegression(nx=NX, folder=str(TRAIN_DIR / "resume_ref"),
+                         device=DEV)
+    ref.fit(ds_train, ds_test, **kw)
+    folder = str(TRAIN_DIR / "resume_cut")
+    orig = train.TrainCheckpointer.maybe_save
+
+    def crashing(self, epoch, *a, **k):
+        orig(self, epoch, *a, **k)
+        if self.path and epoch >= 1:
+            raise KeyboardInterrupt
+
+    train.TrainCheckpointer.maybe_save = crashing
+    try:
+        CGANRegression(nx=NX, folder=folder, device=DEV).fit(
+            ds_train, ds_test, **kw)
+        raise AssertionError("phase 11 resume: the run was not cut")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        train.TrainCheckpointer.maybe_save = orig
+    resumed = CGANRegression(nx=NX, folder=folder, device=DEV)
+    resumed.fit(ds_train, ds_test, **kw)
+    torch.cuda.synchronize()
+    differ = {}
+    for net in ("G", "D"):
+        a = getattr(ref, net).state_dict()
+        b = getattr(resumed, net).state_dict()
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                differ[f"{net}.{k}"] = float((a[k] - b[k]).abs().max())
+    seconds = time.perf_counter() - t0
+    launches = read_counts(fused_conv, graph)[0]
+    log(f"phase 11, GAN resume on the card (2 epochs against 1 + 1): "
+        f"{'bitwise equal' if not differ else differ} in {seconds:.1f} s "
+        f"on {smi}")
+    if differ:
+        raise AssertionError(f"phase 11 resume differs: {differ}")
+    return {"bitwise_equal": True, "seconds": seconds,
+            "launches": launches}
+
+
+def stable_epoch_on_card(fused_conv, graph, gan, ds_test, smi):
+    """Phase 11, part 4: select_stable_epoch over the trained GAN's two
+    banked generators, each a short graphed run_ensemble (2 members, dt
+    7200 s, from a test snapshot): K1 launches, each candidate's run
+    captures its own graphs and replays them, and weights_generation grows
+    once a candidate and once for the chosen one."""
+    from pyqg_generative_torch import sim
+    from pyqg_generative_torch.qg.params import QGParams
+    runs = []
+    orig = sim.run_ensemble
+
+    def counted(*a, **k):
+        before = read_counts(fused_conv, graph)
+        generation = gan.weights_generation
+        ds = orig(*a, **k)
+        after = read_counts(fused_conv, graph)
+        runs.append({"weights_generation": generation,
+                     **{c: after[1][c] - before[1][c] for c in GRAPH_COUNTS},
+                     "launches": after[0]["launches"]
+                     - before[0]["launches"]})
+        return ds
+
+    set_counts(fused_conv, graph)
+    generation = gan.weights_generation
+    sim.run_ensemble = counted
+    try:
+        t0 = time.perf_counter()
+        best, results = gan.select_stable_epoch(
+            pyqg_params=QGParams(nx=NX, dt=7200.0, precision="single"),
+            q_init=ds_test["q"].values[0, -1], years=0.01, n_ens=2,
+            verbose=True)
+        seconds = time.perf_counter() - t0
+    finally:
+        sim.run_ensemble = orig
+    counts = read_counts(fused_conv, graph)
+    ok = (best in (1, 2) and sorted(results) == [1, 2] and len(runs) == 2
+          and all(r["captured_steps"] > 0 and r["replayed_steps"] > 0
+                  and r["launches"] > 0 for r in runs)
+          and runs[0]["weights_generation"] < runs[1]["weights_generation"]
+          and gan.weights_generation == generation + 3
+          and (TRAIN_DIR / "gan" / "G_stable.msgpack").exists())
+    log(f"phase 11, select_stable_epoch on the card: best epoch {best}, "
+        f"(std, spectrum error) {results}, runs {runs}, counts {counts}, "
+        f"weights_generation {generation} -> {gan.weights_generation}, "
+        f"{seconds:.2f} s on {smi}")
+    if not ok:
+        raise AssertionError("phase 11 select_stable_epoch: see above")
+    return {"best_epoch": best, "results": {str(k): v for k, v in
+                                            results.items()},
+            "runs": runs, "launch_counts": counts[0], "seconds": seconds}
+
+
+def _train_step_profile(step):
+    """ms a batch step by the host clock over TIMED_STEPS steps (the card
+    synchronised at both ends), and a window of TRACED_STEPS steps traced
+    by torch.profiler: the device's busy share (the union of the kernel
+    intervals over the window's span), device ms and kernels a step."""
+    for j in range(5):
+        step(j)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(TIMED_STEPS):
+        step(j)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for j in range(TRACED_STEPS):
+                step(j)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    if not kernels:
+        raise AssertionError("the profiler saw no device kernel")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy = _union_us(spans)
+    return {"ms_per_batch": ms,
+            "traced_busy_share": busy / (spans[-1][1] - spans[0][0]),
+            "traced_device_ms_per_batch": busy / TRACED_STEPS / 1e3,
+            "traced_kernels_per_batch": len(kernels) / TRACED_STEPS}
+
+
+def training_step_readings(ds_train, smi):
+    """Phase 11, part 5: the time of a batch step at batch TRAIN_BATCH of
+    the GAN (averaged over i = 0..4: one generator update in five), the
+    VAE and the GZ's mean net, on the trained models, and the card's busy
+    share in traced steps."""
+    from pyqg_generative_torch.device import exact_fp32_training
+    from pyqg_generative_torch.ml import train
+    from pyqg_generative_torch.models import base, common, load_model
+    from pyqg_generative_torch.models import cgan_regression as gan
+    from pyqg_generative_torch.models import cvae_regression as vae
+    X, Y = base.prepare_PV_data(ds_train, ds_train)[:2]
+    x = torch.as_tensor(X[:TRAIN_BATCH], device=DEV)
+    y = torch.as_tensor(Y[:TRAIN_BATCH], device=DEV)
+    batch = (x, y, torch.zeros_like(x))
+    g = torch.Generator(device=DEV).manual_seed(0)
+    readings = {}
+
+    m = load_model(str(TRAIN_DIR / "gan"), device=DEV)
+    txG, txD = gan.gan_optimizers(2e-4, 2, 10)
+    opt = {"G": txG.init(train.named_params(m.G)),
+           "D": txD.init(train.named_params(m.D))}
+    gstep = gan.make_gan_batch_step(m, txG, txD)
+    readings["gan"] = _train_step_profile(
+        lambda j: gstep(opt, batch, j % 5, gan.gan_draws(g, x, 2)))
+
+    m = load_model(str(TRAIN_DIR / "vae"), device=DEV)
+    tx = vae.vae_optimizer(2e-4, 2, 10)
+    vopt = tx.init(vae.vae_params(m))
+    vstep = vae.make_vae_step(m, tx)
+    readings["vae"] = _train_step_profile(
+        lambda j: vstep(vopt, batch, vae.vae_eps(g, m, x)))
+
+    m = load_model(str(TRAIN_DIR / "gz"), device=DEV)
+    tx = train.multistep_adam(1e-3, 2, 10)
+    ropt = tx.init(train.named_params(m.net_mean))
+    rstep = train.make_train_step(common.mse_loss_fn(m.net_mean),
+                                  m.net_mean, tx)
+
+    def gz(j):
+        with exact_fp32_training():
+            rstep(ropt, (x, y))
+    readings["gz_mean_net"] = _train_step_profile(gz)
+    for name, r in readings.items():
+        log(f"phase 11, {name} training step at batch {TRAIN_BATCH} x "
+            f"{NX}^2: {r['ms_per_batch']:.3f} ms a batch by the host clock; "
+            f"traced: the card busy {100 * r['traced_busy_share']:.1f}% of "
+            f"the window, {r['traced_device_ms_per_batch']:.3f} device ms "
+            f"and {r['traced_kernels_per_batch']:.0f} kernels a batch on "
+            f"{smi}")
+    return readings
+
+
+def training_path(fused_conv, graph, rows, smi):
+    """Phase 11: the training slice on the card (see the docstring), each
+    part with the counts set to 0 just before it and read just after; K1's
+    and K2's launches over the phase go into their kernel rows."""
+    t0 = time.perf_counter()
+    ds_train, ds_test, data = training_data(fused_conv, graph, smi)
+    closures, gan = train_every_closure(fused_conv, graph, ds_train,
+                                        ds_test, smi)
+    out = {"data": data, "closures": closures, "reduced": REDUCED_11,
+           "card_vs_cpu": card_vs_cpu_steps(smi),
+           "resume": resume_on_card(fused_conv, graph, ds_train, ds_test,
+                                    smi),
+           "stable_epoch": stable_epoch_on_card(fused_conv, graph, gan,
+                                                ds_test, smi)}
+    set_counts(fused_conv, graph)
+    out["step_readings"] = training_step_readings(ds_train, smi)
+    parts = [c["launches"] for c in closures.values()] + [
+        out["resume"]["launches"], out["stable_epoch"]["launch_counts"],
+        read_counts(fused_conv, graph)[0]]
+    launches = {k: sum(p[k] for p in parts) for k in COUNTS}
+    if not launches["launches"] or not launches["launches_packed"]:
+        raise AssertionError(f"phase 11 launched no K1 or no K2: {launches}")
+    rows["k1"]["phase11"] = {"launches": launches["launches"]}
+    rows["k2"]["phase11"] = {"launches": launches["launches_packed"]}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
 def _group(name: str) -> str:
     low = name.lower()
     if "conv_fma_kernel" in name:
@@ -1758,9 +2281,13 @@ def main():
     # 10. the scoring path
     phase10 = scoring_path(fused_conv, graph, rows, smi)
     log(f"phase 10 took {phase10['seconds']:.1f} s")
+    # 11. training
+    phase11 = training_path(fused_conv, graph, rows, smi)
+    log(f"phase 11 took {phase11['seconds']:.1f} s")
     print(json.dumps({"step_profile": profiles}))
     print(json.dumps({"every_closure": zoo_readings, "card": smi}))
     print(json.dumps({"scoring_path": phase10, "card": smi}))
+    print(json.dumps({"training": phase11, "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,12 @@
 """The closures' networks as PyTorch modules, and the BatchNorm folding.
 
 Twin of `pyqg_generative_tpu/ml/nets.py`: `AndrewCNN` (the 8-layer circular
-CNN, kernels [5,5,3x6], channels [128,64,32x5], conv -> ReLU -> BatchNorm
-after each hidden conv, with the `div=True` spectral-divergence head),
-`VarCNN`, the stencil MLP `ANN`, `ResUnit` and the U-Net
-`DeepInversionGenerator`, and the bottleneck VAE's `Downsampling` and
-`Upsampling`. The modules compute in PyTorch's NCHW but take and return NHWC
-(a flat (B, features) for the dense ends), the twin's layout, so that the
+CNN, kernels [5,5,3x6], channels [128,64,32x5], conv -> ReLU -> BatchNorm after
+each hidden conv, with the `div=True` spectral-divergence head), `VarCNN`, the
+stencil MLP `ANN`, `ResUnit` and the U-Net `DeepInversionGenerator`, and the
+bottleneck VAE's `Downsampling` and `Upsampling`, and the GAN's critic
+`DCGANDiscriminator`. The modules compute in PyTorch's NCHW but take and return
+NHWC (a flat (B, features) for the dense ends), the twin's layout, so that the
 two compare like with like.
 
 Every submodule carries its flax name (`Conv_0`, `BatchNorm_3`,
@@ -17,6 +17,11 @@ carry weights across by name alone. flax's padding conventions:
 (also at stride 2); `ConvTranspose` with the default `transpose_kernel=False`
 is `conv_transpose2d` on the kernel flipped in both spatial axes, with no
 padding, cropped to stride x the input ("SAME" output size).
+
+Training (twin :25-41): `BatchNorm` in train mode is flax's (the biased
+batch variance normalises and enters the running average, 0.9 old + 0.1
+new), and `init_weights` draws a module's weights by the twin's
+initializers from an explicit `torch.Generator`.
 """
 from __future__ import annotations
 
@@ -31,11 +36,105 @@ from torch import nn
 from ..qg.grid import make_grid
 
 __all__ = ["AndrewCNN", "VarCNN", "ANN", "ResUnit", "DeepInversionGenerator",
-           "Downsampling", "Upsampling", "fold_batchnorm", "circular_conv2d",
-           "spectral_divergence", "divergence_head"]
+           "Downsampling", "Upsampling", "DCGANDiscriminator", "BatchNorm",
+           "fold_batchnorm", "circular_conv2d", "spectral_divergence",
+           "divergence_head", "dcgan_normal_init", "init_weights",
+           "count_params"]
 
 HIDDEN = (128, 64, 32, 32, 32, 32, 32)
 BN_EPS = 1e-5  # flax BatchNorm's epsilon in the twin (`_norm`)
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 running + (1 - 0.9) batch
+# flax's truncated normal draws N(0, 1) cut at +-2 and divides by this, the
+# standard deviation of the cut distribution, so its variance is the target
+_TRUNC_STD = 0.87962566103423978
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (eps 1e-5) whose train-mode forward is flax's
+    `BatchNorm(momentum=0.9, use_fast_variance=False)`: mean and biased
+    variance over (N, H, W), y = (x - mean) * (rsqrt(var + eps) * scale) +
+    bias, and the running statistics 0.9 old + (1 - 0.9) batch, the
+    variance biased (torch's own would enter the unbiased one);
+    `num_batches_tracked`, which flax does not keep, stays 0. Eval mode is
+    torch's, on the running statistics."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = ((x - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                    + (1 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                   + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+
+
+def dcgan_normal_init(std: float = 0.02):
+    """N(0, std^2) kernel initializer (the DCGAN recipe; reference
+    tools/cnn_tools.py:54-65): init(tensor, generator) fills in place."""
+    def init(tensor: torch.Tensor, generator: torch.Generator):
+        with torch.no_grad():
+            tensor.normal_(0.0, std, generator=generator)
+    return init
+
+
+def _lecun_normal(tensor: torch.Tensor, generator: torch.Generator,
+                  fan_in: int):
+    """flax's default kernel initializer `lecun_normal`: a truncated normal
+    of variance 1/fan_in."""
+    with torch.no_grad():
+        nn.init.trunc_normal_(tensor, 0.0, 1.0, -2.0, 2.0,
+                              generator=generator)
+        tensor.mul_(np.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
+
+def _fan_in(layer: nn.Module) -> int:
+    """The flax kernel's fan-in: (kh, kw, in) of a (transposed) conv, in of
+    a dense layer."""
+    w = layer.weight
+    if isinstance(layer, nn.ConvTranspose2d):
+        return w.shape[0] * w.shape[2] * w.shape[3]
+    return int(np.prod(w.shape[1:]))
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Draw `module`'s weights from `generator` by the twin's initializers,
+    layer by layer in registration order: a conv of an AndrewCNN or of the
+    critic N(0, 0.02) (`dcgan_normal_init`), every other conv, transposed
+    conv and dense kernel flax's `lecun_normal`, biases zero; a BatchNorm's
+    scale N(0, 0.02), its bias zero, its running mean 0 and variance 1
+    (`_norm` :31-41)."""
+    for parent in module.modules():
+        dcgan = getattr(parent, "kernel_init", None) == "dcgan"
+        for layer in parent.children():
+            if isinstance(layer, BatchNorm):
+                dcgan_normal_init()(layer.weight, generator)
+                with torch.no_grad():
+                    layer.bias.zero_()
+                layer.reset_running_stats()
+            elif isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d,
+                                    nn.Linear)):
+                if dcgan:
+                    dcgan_normal_init()(layer.weight, generator)
+                else:
+                    _lecun_normal(layer.weight, generator, _fan_in(layer))
+                if layer.bias is not None:
+                    with torch.no_grad():
+                        layer.bias.zero_()
+
+
+def count_params(module: nn.Module) -> int:
+    """Parameters and BatchNorm statistics: the size of the twin's
+    variables tree (`count_params` :349)."""
+    return sum(int(t.numel()) for k, t in module.state_dict().items()
+               if not k.endswith("num_batches_tracked"))
 
 
 def circular_conv2d(x: torch.Tensor, w: torch.Tensor,
@@ -98,7 +197,9 @@ class AndrewCNN(nn.Module):
     (reference tools/cnn_tools.py:125-182). Eval-mode BatchNorm uses the
     running statistics, as the twin does with `train=False`. `div=True`
     doubles the output channels and returns 10000 * their spectral
-    divergence, n_out channels."""
+    divergence, n_out channels. Its convs are drawn N(0, 0.02)."""
+
+    kernel_init = "dcgan"
 
     def __init__(self, n_in: int, n_out: int,
                  hidden_channels: Sequence[int] = HIDDEN,
@@ -116,7 +217,7 @@ class AndrewCNN(nn.Module):
             self.add_module(f"Conv_{i}", nn.Conv2d(ci, co, k, bias=bias))
             if batch_norm and i < self.n_layers - 1:
                 self.add_module(f"BatchNorm_{i}",
-                                nn.BatchNorm2d(co, eps=BN_EPS))
+                                BatchNorm(co))
         self.batch_norm = batch_norm
         self.relu = relu
         self.final_activation = final_activation
@@ -191,8 +292,8 @@ class ResUnit(nn.Module):
             raise ValueError(f"norm {bn!r}: 'BatchNorm' or 'None'")
         self.bn = bn
         if bn == "BatchNorm":
-            self.BatchNorm_0 = nn.BatchNorm2d(in_ch, eps=BN_EPS)
-            self.BatchNorm_1 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+            self.BatchNorm_0 = BatchNorm(in_ch)
+            self.BatchNorm_1 = BatchNorm(out_ch)
         self.Conv_0 = nn.Conv2d(in_ch, out_ch, 3)
         self.Conv_1 = nn.Conv2d(out_ch, out_ch, 3)
         self.Conv_2 = nn.Conv2d(in_ch, out_ch, 1)
@@ -270,8 +371,7 @@ class Downsampling(nn.Module):
             nout = n_out if (i == n_down - 1 and not flatten) \
                 else hidden_dims[i]
             self.add_module(f"Conv_{i}", nn.Conv2d(ch, nout, 3))
-            self.add_module(f"BatchNorm_{i}", nn.BatchNorm2d(nout,
-                                                             eps=BN_EPS))
+            self.add_module(f"BatchNorm_{i}", BatchNorm(nout))
             ch = nout
         if flatten:
             nxc = nx // 2 ** n_down
@@ -311,8 +411,7 @@ class Upsampling(nn.Module):
                 if i + 1 < len(hd) else n_out
             self.add_module(f"ConvTranspose_{i}",
                             nn.ConvTranspose2d(ch, nout, 3, stride=2))
-            self.add_module(f"BatchNorm_{i}", nn.BatchNorm2d(nout,
-                                                             eps=BN_EPS))
+            self.add_module(f"BatchNorm_{i}", BatchNorm(nout))
             ch = nout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -325,6 +424,39 @@ class Upsampling(nn.Module):
                 x, getattr(self, f"ConvTranspose_{i}"), 2)
             x = F.leaky_relu(getattr(self, f"BatchNorm_{i}")(x), 0.01)
         return x.permute(0, 2, 3, 1)
+
+
+
+class DCGANDiscriminator(nn.Module):
+    """The GAN's critic (twin :131-158; reference tools/cnn_tools.py:212-244):
+    four stride-2 4x4 convs with zero padding 1 and no bias, each followed
+    by LeakyReLU(0.2), then a valid conv of kernel nx/64*4 that collapses
+    the nx/16 map to 1x1; no sigmoid. NHWC (B, nx, nx, n_in) -> (B, 1), the
+    first entry of the flattened map, as the twin's `[:, :1]`. The GAN
+    closure's critic has no norm layers (bn="None", the only one here);
+    its convs are drawn N(0, 0.02)."""
+
+    kernel_init = "dcgan"
+
+    def __init__(self, n_in: int = 6, ndf: int = 64, nx: int = 64,
+                 bn: str = "None"):
+        super().__init__()
+        if bn != "None":
+            raise ValueError(f"critic norm {bn!r}: only 'None' is ported")
+        ch = n_in
+        for i, w in enumerate((ndf, ndf * 2, ndf * 4, ndf * 8)):
+            self.add_module(f"Conv_{i}", nn.Conv2d(ch, w, 4, stride=2,
+                                                   padding=1, bias=False))
+            ch = w
+        kfin = int(nx / 64 * 4)
+        self.Conv_4 = nn.Conv2d(ch, 1, kfin, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        for i in range(4):
+            x = F.leaky_relu(getattr(self, f"Conv_{i}")(x), 0.2)
+        x = self.Conv_4(x).permute(0, 2, 3, 1)
+        return x.reshape(x.shape[0], -1)[:, :1]
 
 
 def _to_numpy_tree(tree):

@@ -139,7 +139,9 @@ def params_to_jax(state_dict: dict) -> dict:
     params, stats = {}, {}
     for key, t in state_dict.items():
         *path, attr = key.split(".")
-        kind, a = _kind(path[-1]), t.detach().cpu().numpy()
+        # a copy: a CPU tensor's numpy() shares its storage, and training
+        # updates the tensor in place
+        kind, a = _kind(path[-1]), t.detach().cpu().numpy().copy()
         if attr == "num_batches_tracked":
             continue
         if attr == "running_mean":

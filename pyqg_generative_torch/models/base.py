@@ -1,15 +1,16 @@
 """Parameterization base class (online hooks and the offline harness), the
 model registry and the folder contract's writers.
 
-Twin of `pyqg_generative_tpu/models/base.py` (:43-273) without its training
-half: a closure maps PV snapshots (..., lev, ny, nx) and latent noise (...,
-model-defined shape) to a PV forcing, with the spatial mean removed per
-layer. Leading axes are ensemble members. `save_model_args` and
-`save_variables` write the twin's folder contract (`model_args.json`, flax
-msgpack weights, written with `msgpack` alone). Offline, `predict` maps a
-dataset of snapshots to the forcing's sample, mean and variance, and
-`test_offline` turns them into the twin's metric dataset, key for key and
-dim for dim, on the host in numpy; `extract`, `array_to_dataset` and
+Twin of `pyqg_generative_tpu/models/base.py` (:43-273): a closure maps PV
+snapshots (..., lev, ny, nx) and latent noise (..., model-defined shape) to a
+PV forcing, with the spatial mean removed per layer. Leading axes are ensemble
+members. `save_model_args` and `save_variables` write the twin's folder
+contract (`model_args.json`, flax msgpack weights, written with `msgpack`
+alone), and `load_variables` reads a weights file against a template tree.
+`fit` trains a closure on a forcing dataset (each closure's own). Offline,
+`predict` maps a dataset of snapshots to the forcing's sample, mean and
+variance, and `test_offline` turns them into the twin's metric dataset, key for
+key and dim for dim, on the host in numpy; `extract`, `array_to_dataset` and
 `prepare_PV_data` move between datasets and NHWC arrays as the twin's do.
 """
 from __future__ import annotations
@@ -22,14 +23,14 @@ import torch
 
 from ..eval.metrics import PDF_histogram, subgrid_scores
 from ..ml.scalers import ChannelwiseScaler
-from ..ml.weights import to_msgpack_bytes
+from ..ml.weights import read_msgpack, to_msgpack_bytes
 from ..qg.params import AVERAGE_SLICE_ANDREW
 from ..qg.spectral import spectrum
 from ..utils import xrlite as xr
 
 __all__ = ["Parameterization", "register_model", "load_model",
            "MODEL_REGISTRY", "save_model_args", "save_variables",
-           "extract", "array_to_dataset", "prepare_PV_data"]
+           "load_variables", "extract", "array_to_dataset", "prepare_PV_data"]
 
 MODEL_REGISTRY: dict[str, type] = {}
 
@@ -62,6 +63,27 @@ def save_variables(variables: dict, path: str):
     `serialization.to_bytes` writes."""
     with open(path, "wb") as f:
         f.write(to_msgpack_bytes(variables))
+
+
+def _layout(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_layout(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tuple(np.shape(tree))}
+
+
+def load_variables(template: dict, path: str) -> dict:
+    """The flax tree in the weights file `path`, checked against
+    `template`: the same paths and shapes, as flax's `from_bytes(template,
+    ...)` restores it (twin :69)."""
+    tree = read_msgpack(path)
+    want, got = _layout(template), _layout(tree)
+    if want != got:
+        diff = sorted(set(want.items()) ^ set(got.items()))[:5]
+        raise ValueError(f"{path} does not match its template: {diff}")
+    return tree
 
 
 # --------------------------------------------------------------------------
@@ -138,6 +160,10 @@ class Parameterization:
         raise NotImplementedError
 
     def predict_mean_snapshot(self, q: torch.Tensor, M: int = 100):
+        raise NotImplementedError
+
+    def fit(self, ds_train, ds_test, **kw):
+        """Train on a forcing dataset and save into `self.folder`."""
         raise NotImplementedError
 
     def predict(self, ds: xr.Dataset, M: int = 1000) -> xr.Dataset:

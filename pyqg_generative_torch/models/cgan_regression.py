@@ -33,29 +33,54 @@ cannot draw the twin's threefry keys.
 `G_opt.msgpack` or `G_stable.msgpack`: the packed kernel weights, online
 and offline, are dropped and `weights_generation` grows, so no graph
 captured before the switch replays after it (`sim/graph.py`). The twin's
-`online_backend` switch has no counterpart. Training and the critic wait
-for later slices.
+`online_backend` switch has no counterpart.
+
+Training (twin :98-133, :179-272, :446-713): `fit` trains the critic
+`DCGANDiscriminator` and the generator by `train_CGAN`, one
+`make_gan_batch_step` a batch on device-resident data, under
+`exact_fp32_training` (PyTorch's own float32 convolutions, deterministic, the
+gradient penalty's double backward included: cuDNN's deterministic weight
+gradients of the 5x5 convs lose float32's precision). The draws the twin splits
+from its key (z1, z2, the penalty's eps and swap) come from a torch.Generator
+seeded with `key` (`gan_draws`), and the batch step takes them as an argument.
+After every epoch the flax tree `vars_G` is rewritten from the trained
+generator and `weights_generation` grows, so the offline evaluation and any
+graph run on the new weights. The best epoch by offline loss is kept in
+`G_opt.msgpack`, every `retain_every`-th epoch in `epoch_bank/`, from which
+`select_stable_epoch` picks by short online rollouts.
 """
 from __future__ import annotations
 
+import glob
 import os
+import time
 from functools import lru_cache
 
 import numpy as np
 import torch
 
-from ..device import exact_fp32, resolve_device
+from ..device import exact_fp32, exact_fp32_training, resolve_device
+from ..eval.metrics import subgrid_scores
 from ..ml.fused_conv import compute_dtype_of
-from ..ml.nets import AndrewCNN, DeepInversionGenerator
-from ..ml.train import apply_in_batches
-from ..ml.weights import params_from_jax, read_msgpack
+from ..ml.nets import AndrewCNN, DCGANDiscriminator, DeepInversionGenerator, \
+    init_weights
+from ..ml.train import Adam, TrainCheckpointer, apply_in_batches, \
+    epoch_permutation, log_to_dataset, mean_metrics, named_params, \
+    piecewise_constant_schedule
+from ..ml.weights import params_from_jax, params_to_jax, read_msgpack
 from ..utils import xrlite as xr
 from .base import Parameterization, array_to_dataset, extract, \
-    register_model
-from .common import draw_chunks, lev_from_nhwc, nhwc_from_lev, \
-    offline_variant, online_chain, read_scalers
+    prepare_PV_data, register_model, save_model_args, save_variables
+from .common import bn_apply, draw_chunks, eval_in_batches, lev_from_nhwc, \
+    nhwc_from_lev, offline_variant, online_chain, read_scalers, \
+    set_scalers, train_regression
 
-__all__ = ["CGANRegression"]
+__all__ = ["CGANRegression", "evaluate_prediction", "loss_to_dataset",
+           "gan_draws", "gan_optimizers", "make_gan_batch_step",
+           "train_CGAN"]
+
+LAMBDA_DRIFT = 1e-3
+LAMBDA_GP = 10.0
 
 
 @lru_cache(maxsize=4)
@@ -93,19 +118,64 @@ class CGANRegression(Parameterization):
         else:
             G = DeepInversionGenerator(2 + self.n_latent, 2)
         self.G = G.to(self.device).eval()
+        self.D = DCGANDiscriminator(6, nx=nx).to(self.device).eval()
         self.net_mean = AndrewCNN(2, 2, div=div).to(self.device).eval() \
             if regression != "None" else None
         self.vars_G = None
+        self.vars_D = None
+        self.vars_mean = None
         self._online_cache = None
         self._offline_cache = None
         self.load_model(folder)
 
+    # --------------------------------------------------------------- fitting
+    def fit(self, ds_train, ds_test, num_epochs: int = 200,
+            num_epochs_regression: int = 50, batch_size: int = 64,
+            learning_rate: float = 2e-4, nruns: int = 5,
+            verbose: bool = True, key: int = 0,
+            checkpoint_every: int = 25, retain_every: int = 0):
+        X_train, Y_train, X_test, Y_test, x_scale, y_scale = \
+            prepare_PV_data(ds_train, ds_test)
+        set_scalers(self, x_scale, y_scale)
+        if self.regression != "None" and self.vars_mean is None:
+            self.vars_mean, _ = train_regression(
+                self.net_mean, X_train, Y_train, X_test, Y_test,
+                num_epochs_regression, batch_size, 1e-3, verbose=verbose)
+        log = train_CGAN(self, ds_train, ds_test, X_train, Y_train,
+                         num_epochs, batch_size, learning_rate, nruns,
+                         verbose=verbose, key=key,
+                         checkpoint_every=checkpoint_every,
+                         retain_every=retain_every)
+        self.save_model(log)
+
+    def save_model(self, log=None):
+        os.makedirs(self.folder, exist_ok=True)
+        save_variables(self.vars_G, f"{self.folder}/G.msgpack")
+        save_variables(self.vars_D, f"{self.folder}/D.msgpack")
+        if self.regression != "None":
+            save_variables(self.vars_mean, f"{self.folder}/net_mean.msgpack")
+        self.x_scale.write("x_scale.json", self.folder)
+        self.y_scale.write("y_scale.json", self.folder)
+        save_model_args("CGANRegression", folder=self.folder,
+                        regression=self.regression, nx=self.nx,
+                        generator=self.generator, div=self.div,
+                        hidden_channels=list(self.hidden_channels))
+        if log:
+            stats, epoch = loss_to_dataset(log)
+            stats.to_npz(f"{self.folder}/stats.npz")
+            print("Optimal epoch is", epoch)
+
     def load_model(self, folder) -> bool:
+        """The folder's generator, critic (where `D.msgpack` is there: only
+        training reads it), mean net and scalers."""
         if not self._load_generator_file(f"{folder}/G.msgpack"):
             return False
+        if os.path.exists(f"{folder}/D.msgpack"):
+            self.vars_D = read_msgpack(f"{folder}/D.msgpack")
+            self.D.load_state_dict(params_from_jax(self.vars_D))
         if self.net_mean is not None:
-            self.net_mean.load_state_dict(params_from_jax(
-                read_msgpack(f"{folder}/net_mean.msgpack")))
+            self.vars_mean = read_msgpack(f"{folder}/net_mean.msgpack")
+            self.net_mean.load_state_dict(params_from_jax(self.vars_mean))
         read_scalers(self, folder)
         return True
 
@@ -114,12 +184,24 @@ class CGANRegression(Parameterization):
         the packed weights of the old ones."""
         if not os.path.exists(path):
             return False
-        self.vars_G = read_msgpack(path)
-        self.G.load_state_dict(params_from_jax(self.vars_G))
+        self._set_generator(read_msgpack(path))
+        return True
+
+    def _set_generator(self, variables: dict) -> None:
+        """Switch the generator to the flax tree `variables`."""
+        self.G.load_state_dict(params_from_jax(variables))
+        self._generator_changed(variables)
+
+    def _generator_changed(self, variables: dict | None = None) -> None:
+        """The generator module holds new weights (`variables`, or its own
+        trained ones): rewrite `vars_G`, drop the packed weights, online and
+        offline, and count a new generation."""
+        self.G.eval()
+        self.vars_G = variables if variables is not None \
+            else params_to_jax(self.G.state_dict())
         self._online_cache = None
         self._offline_cache = None
         self.weights_generation += 1
-        return True
 
     def use_optimal_epoch(self) -> bool:
         """Switch the generator to the best-offline-loss epoch's weights
@@ -130,6 +212,80 @@ class CGANRegression(Parameterization):
         """Switch the generator to the online-stability-selected epoch's
         weights (G_stable.msgpack), if they were saved."""
         return self._load_generator_file(f"{self.folder}/G_stable.msgpack")
+
+    def select_stable_epoch(self, pyqg_params=None, q_init=None,
+                            years: float = 3.0, n_ens: int = 2,
+                            target_std: float | None = None,
+                            target_kespec=None, spectrum_weight: float = 1.0,
+                            verbose: bool = True):
+        """Online-stability-aware epoch selection (twin :179-272): each
+        banked generator (epoch_bank/G_*.msgpack, from fit(retain_every=...))
+        runs a short online ensemble through `run_ensemble` (graphed on a
+        card; each switch raises `weights_generation`, so its graphs are
+        captured anew) from `q_init`, and the one whose final std(q) stays
+        closest to `target_std` in log (plus `spectrum_weight` x the
+        normalised KE-spectrum RMSE against `target_kespec`, over the
+        rollout's second half, where given) is saved as G_stable.msgpack
+        and loaded. Returns (best_epoch, {epoch: (std, spec_err)})."""
+        from ..eval.comparison import _spectral_rmse
+        from ..qg.params import ANDREW_1000_STEPS, YEAR, QGParams
+        from ..sim import run_ensemble
+
+        bank = sorted(glob.glob(f"{self.folder}/epoch_bank/G_*.msgpack"),
+                      key=lambda f: int(f.split("_")[-1].split(".")[0]))
+        if not bank:
+            return None, {}
+        p = pyqg_params or QGParams(nx=self.nx, dt=7200.0,
+                                    precision="single")
+        tave_frac = 0.5 if target_kespec is not None else 1.0
+        p = p.replace(tmax=years * YEAR, tavestart=tave_frac * years * YEAR)
+        if q_init is None:
+            q_init = np.load(os.path.join(
+                os.path.dirname(os.path.dirname(os.path.dirname(
+                    os.path.abspath(__file__)))), "tests", "data",
+                "eddy48_snapshot.npz"))["q"]
+        if target_std is None:
+            target_std = float(np.std(q_init))
+        orig = self.vars_G
+        results = {}
+        best = (None, np.inf, None)
+        for f in bank:
+            epoch = int(f.split("_")[-1].split(".")[0])
+            self._load_generator_file(f)
+            ds = run_ensemble(p, {"self": self, "sampling": "constant",
+                                  "nsteps": 1}, n_ens=n_ens, q_init=q_init,
+                              sampling_freq=ANDREW_1000_STEPS, key=epoch,
+                              device=self.device)
+            std = float(np.std(ds["q"].values[:, -1]))
+            spec_err = 0.0
+            if target_kespec is not None and "KEspec" not in ds:
+                import warnings
+                warnings.warn(
+                    "select_stable_epoch: target_kespec given but the probe "
+                    "run has no KEspec (with_diags off?) — the spectrum "
+                    "term drops out and selection degrades to "
+                    "amplitude-only", stacklevel=2)
+            if target_kespec is not None and "KEspec" in ds:
+                probe_spec = ds["KEspec"].values
+                if probe_spec.ndim == 4:  # (run, lev, l, k)
+                    probe_spec = probe_spec.mean(axis=0)
+                diff, scale = _spectral_rmse(probe_spec,
+                                             np.asarray(target_kespec))
+                spec_err = float(diff / scale)
+            results[epoch] = (std, spec_err)
+            score = abs(np.log(std / target_std)) + \
+                spectrum_weight * spec_err
+            if verbose:
+                print(f"epoch {epoch}: final std(q) {std:.3e} "
+                      f"(target {target_std:.3e})"
+                      + (f", KEspec err {spec_err:.3f}"
+                         if target_kespec is not None else ""))
+            if score < best[1]:
+                best = (epoch, score, self.vars_G)
+        if best[0] is not None:
+            save_variables(best[2], f"{self.folder}/G_stable.msgpack")
+        self._set_generator(best[2] if best[0] is not None else orig)
+        return best[0], results
 
     # ------------------------------------------------------------- inference
     def latent_shape(self, ny, nx):
@@ -302,3 +458,254 @@ class CGANRegression(Parameterization):
         arr = arr.reshape((shape[0], shape[1], M) + shape[2:]).transpose(
             2, 0, 1, 3, 4, 5)
         return xr.DataArray(arr, dims=("ens", "run", "time", "lev", "y", "x"))
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def evaluate_prediction(net, ds, nruns=None, M: int = 16, key: int = 0):
+    """Subgrid scores on a run subsample (reference cgan_regression.py:224-234)."""
+    nrun = ds["q"].sizes()["run"] if "run" in ds["q"].dims else 1
+    idx = np.arange(nrun)
+    if nruns is not None and nruns < len(idx):
+        idx = np.random.default_rng(key).choice(idx, nruns, replace=False)
+    sub = ds.isel(run=idx)
+    preds = net.predict(sub, M=M)
+    s = subgrid_scores(sub["q_forcing_advection"],
+                       preds["q_forcing_advection_mean"],
+                       preds["q_forcing_advection"])
+    return {k: float(np.mean(s[k].values))
+            for k in ("L2_mean", "L2_total", "L2_residual")} | \
+        {"var_ratio": float(np.mean(s["var_ratio"].values))}
+
+
+def loss_to_dataset(log: dict):
+    """Training curves + optimal-epoch tracking
+    (reference cgan_regression.py:236-245)."""
+    ds = log_to_dataset(log)
+    if "L2_total_test" in log and "L2_residual_test" in log:
+        loss = np.asarray(log["L2_total_test"]) + \
+            np.asarray(log["L2_residual_test"])
+        ds["loss_opt"] = xr.DataArray(loss, ("epoch",))
+        epoch_opt = int(np.argmin(loss)) + 1
+        ds["Epoch_opt"] = xr.DataArray(np.asarray(epoch_opt))
+        return ds, epoch_opt
+    return ds, len(next(iter(log.values()), []))
+
+
+def gan_draws(generator: torch.Generator, x: torch.Tensor, n_latent: int):
+    """A batch step's draws, in this order, from `generator` on its device:
+    the latents z1 and z2, N(0, 1) of x's shape with n_latent channels; the
+    gradient penalty's interpolation weights eps, U[0, 1) a sample; swap,
+    a bool that is true with probability 1/2 (where the twin splits its
+    key into kz1, kz2, keps and kswap, :497-503)."""
+    shape = x.shape[:-1] + (n_latent,)
+    kw = {"generator": generator, "device": generator.device,
+          "dtype": x.dtype}
+    z1 = torch.randn(shape, **kw)
+    z2 = torch.randn(shape, **kw)
+    eps = torch.rand((x.shape[0], 1, 1, 1), **kw)
+    swap = torch.rand((), **kw) < 0.5
+    return z1, z2, eps, swap
+
+
+def make_gan_batch_step(net: CGANRegression, txG: Adam, txD: Adam):
+    """One full GAN training step (twin :476-572) on the modules net.G and
+    net.D in place: batch_step(opt, batch, i, draws, grads=None) -> metrics.
+
+    opt = {"G": G's optimizer state, "D": D's}; batch = (x, y, ymean) NHWC;
+    i = the batch's index in its epoch; draws = (z1, z2, eps, swap)
+    (`gan_draws`). G runs in train mode twice before the critic update and,
+    on a G step (i % 5 == 0), twice more inside it, so its BatchNorm
+    statistics move 2 or 4 times a batch, in the twin's order. The critic
+    runs in eval mode; its loss is -0.5 (D(x,y,ŷ2) + D(x,ŷ1,y)) + D(x,ŷ1,ŷ2)
+    plus the drift LAMBDA_DRIFT D(x,y,ŷ2)^2 and the gradient penalty
+    LAMBDA_GP (|dD/dy| - 1)^2 at eps true + (1-eps) fake, the true pair
+    (ŷ1, y) where swap, else (y, ŷ2). The generator's update reads the
+    updated critic; its loss is logged in float32, as the twin logs it.
+    With `grads` (a dict), the critic's and generator's
+    gradients are left in grads["D"] and grads["G"] by parameter name."""
+    G, D = net.G, net.D
+    pG, pD = named_params(G), named_params(D)
+
+    def g_forward(x, z):
+        return bn_apply(G, torch.cat([x, z], dim=-1), True)
+
+    def batch_step(opt, batch, i, draws, grads=None):
+        x, y, ymean = batch
+        z1, z2, eps, swap = draws
+        if net.regression == "residual_loss":
+            y = y - ymean
+        D.eval()
+        with exact_fp32_training():
+            with torch.no_grad():
+                yf1 = g_forward(x, z1)
+                yf2 = g_forward(x, z2)
+                if net.regression == "full_loss":
+                    yf1 = yf1 + ymean
+                    yf2 = yf2 + ymean
+
+            # ---------------- critic update ------------------------------
+            Dtrue1 = D(torch.cat([x, y, yf2], -1))
+            Dtrue2 = D(torch.cat([x, yf1, y], -1))
+            Dfake = D(torch.cat([x, yf1, yf2], -1))
+            D_loss = -0.5 * (Dtrue1.mean() + Dtrue2.mean()) + Dfake.mean()
+            D_drift = LAMBDA_DRIFT * (Dtrue1 ** 2).mean()
+            ytrue_cat = torch.where(swap, torch.cat([yf1, y], -1),
+                                    torch.cat([y, yf2], -1))
+            yfake_cat = torch.cat([yf1, yf2], -1)
+            yinterp = (eps * ytrue_cat + (1 - eps) * yfake_cat
+                       ).requires_grad_(True)
+            dDdy, = torch.autograd.grad(
+                D(torch.cat([x, yinterp], -1)).sum(), yinterp,
+                create_graph=True)
+            norms = torch.sqrt(
+                (dDdy.reshape(dDdy.shape[0], -1) ** 2).sum(-1) + 1e-12)
+            D_grad = LAMBDA_GP * ((norms - 1.0) ** 2).mean()
+            gD = torch.autograd.grad(D_loss + D_grad + D_drift,
+                                     list(pD.values()))
+            txD.step(pD, gD, opt["D"])
+
+            # ---------------- generator update (every 5th batch) ----------
+            if i % 5 == 0:
+                yg1 = g_forward(x, z1)
+                yg2 = g_forward(x, z2)
+                if net.regression == "full_loss":
+                    yg1 = yg1 + ymean
+                    yg2 = yg2 + ymean
+                G_loss = -D(torch.cat([x, yg1, yg2], -1)).mean()
+                gG = torch.autograd.grad(G_loss, list(pG.values()))
+                txG.step(pG, gG, opt["G"])
+                G_loss = G_loss.detach().to(torch.float32)
+            else:
+                gG = None
+                G_loss = torch.zeros((), dtype=torch.float32,
+                                     device=x.device)
+        if grads is not None:
+            grads["D"] = dict(zip(pD, gD))
+            grads["G"] = None if gG is None else dict(zip(pG, gG))
+        return {"D_loss": D_loss.detach(), "D_grad": D_grad.detach(),
+                "D_drift": D_drift.detach(), "G_loss": G_loss}
+
+    return batch_step
+
+
+def gan_optimizers(learning_rate: float, num_epochs: int, steps: int):
+    """(txG, txD): Adam(b1 0.5, b2 0.999), the rate halved at 1/2, 3/4 and
+    7/8 of the epochs' batches, each read at its optimizer's own update
+    count (twin :600-604)."""
+    sched = [int(num_epochs * f) * steps for f in (0.5, 0.75, 0.875)]
+    lr_sched = piecewise_constant_schedule(learning_rate,
+                                           {b: 0.5 for b in sched})
+    return Adam(lr_sched, b1=0.5, b2=0.999), Adam(lr_sched, b1=0.5,
+                                                  b2=0.999)
+
+
+def train_CGAN(net: CGANRegression, ds_train, ds_test, X_train, Y_train,
+               num_epochs: int, batch_size: int, learning_rate: float,
+               nruns=5, verbose=True, key: int = 0,
+               checkpoint_every: int = 25, retain_every: int = 0):
+    """The GAN's training loop (twin :575-713). numpy's default_rng(key)
+    shuffles, a torch.Generator seeded with `key` on the model's device
+    draws the fresh weights (G, then D, where the model has none) and every
+    batch's draws. Every `checkpoint_every` epochs the carry (G and D with
+    their optimizer states, and the best generator so far) is checkpointed
+    to `gan_train_ckpt.npz`, from which a restarted run resumes bit for bit.
+    retain_every > 0 banks the generator every `retain_every` epochs to
+    `epoch_bank/G_<epoch>.msgpack`; the best generator by offline loss goes
+    to `G_opt.msgpack`. Returns the log."""
+    rng = np.random.default_rng(key)
+    generator = torch.Generator(device=net.device).manual_seed(int(key))
+    n = len(X_train)
+    steps = int(np.ceil(n / batch_size))
+
+    Y_mean = eval_in_batches(net.net_mean, X_train, net.device) \
+        if net.regression != "None" else np.zeros_like(Y_train)
+
+    txG, txD = gan_optimizers(learning_rate, num_epochs, steps)
+    if net.vars_G is None:
+        init_weights(net.G, generator)
+        net._generator_changed()
+    if net.vars_D is None:
+        init_weights(net.D, generator)
+    opt = {"G": txG.init(named_params(net.G)),
+           "D": txD.init(named_params(net.D))}
+    Xd, Yd, Md = (torch.as_tensor(a, device=net.device)
+                  for a in (X_train, Y_train, Y_mean))
+    batch_step = make_gan_batch_step(net, txG, txD)
+
+    log: dict = {}
+    best = {"loss": float("inf"), "vars_G": None, "epoch": 0}
+    best_template = params_to_jax(net.G.state_dict())
+
+    def carry():
+        return {"G": net.G.state_dict(), "D": net.D.state_dict(),
+                "optG": opt["G"], "optD": opt["D"],
+                "best": best["vars_G"] if best["vars_G"] is not None
+                else best_template}
+
+    ckpt = TrainCheckpointer(net.folder, checkpoint_every,
+                             name="gan_train_ckpt")
+    epoch0 = 0
+    resumed = ckpt.restore(carry(), generator)
+    if resumed is not None:
+        epoch0, saved, log, rng, generator, extra = resumed
+        net.G.load_state_dict(saved["G"])
+        net.D.load_state_dict(saved["D"])
+        opt = {"G": saved["optG"], "D": saved["optD"]}
+        if extra.get("best_epoch", 0) > 0:
+            best = {"loss": extra["best_loss"], "vars_G": saved["best"],
+                    "epoch": extra["best_epoch"]}
+        net._generator_changed()
+        net.vars_D = params_to_jax(net.D.state_dict())
+        if verbose:
+            print(f"resuming GAN training from epoch {epoch0}")
+
+    t_s = time.time()
+    for epoch in range(epoch0, num_epochs):
+        t_e = time.time()
+        perm = torch.as_tensor(epoch_permutation(rng, n, batch_size),
+                               device=net.device)
+        rows = []
+        for i, idx in enumerate(perm):
+            x = Xd[idx]
+            rows.append(batch_step(opt, (x, Yd[idx], Md[idx]), i,
+                                   gan_draws(generator, x, net.n_latent)))
+        net._generator_changed()
+        net.vars_D = params_to_jax(net.D.state_dict())
+        row = mean_metrics(rows)
+        if nruns:
+            row.update(evaluate_prediction(net, ds_train, nruns, key=epoch))
+            row.update({f"{k}_test": v for k, v in evaluate_prediction(
+                net, ds_test, nruns, key=epoch).items()})
+            # the best generator by offline loss is kept beside the last
+            # (the reference logs Epoch_opt but keeps only the last)
+            opt_loss = row.get("L2_total_test", np.inf) + \
+                row.get("L2_residual_test", np.inf)
+            if opt_loss < best["loss"]:
+                best.update(loss=opt_loss, epoch=epoch + 1,
+                            vars_G=net.vars_G)
+        if retain_every and (epoch + 1) % retain_every == 0:
+            bank = os.path.join(net.folder, "epoch_bank")
+            os.makedirs(bank, exist_ok=True)
+            save_variables(net.vars_G,
+                           os.path.join(bank, f"G_{epoch + 1}.msgpack"))
+        for k, v in row.items():
+            log.setdefault(k, []).append(v)
+        ckpt.maybe_save(
+            epoch + 1, carry(), log, rng, generator,
+            extra={"best_loss": best["loss"] if best["epoch"] else 0.0,
+                   "best_epoch": best["epoch"]})
+        if verbose:
+            t = time.time()
+            eta = (t - t_s) * (num_epochs / (epoch + 1) - 1)
+            print(f"[{epoch + 1}/{num_epochs}] [{t - t_e:.2f}/{eta:.2f}] "
+                  f"D_loss: {row['D_loss']:.3f} G_loss: {row['G_loss']:.3f}"
+                  + (f" L2_total: {row.get('L2_total_test', float('nan')):.3f}"
+                     if nruns else ""))
+    ckpt.clear()
+    if best["vars_G"] is not None:
+        os.makedirs(net.folder, exist_ok=True)
+        save_variables(best["vars_G"], f"{net.folder}/G_opt.msgpack")
+    return log

@@ -14,25 +14,43 @@ applies it. Offline, `predict` is the GAN's mean and variance program on
 the decoder (twin :224-260), in float32 through a BN-folded chain packed
 for K1 or K2 (`common.offline_variant`; "packed" stays K2).
 `use_optimal_epoch` switches the decoder to `decoder_opt.msgpack`, dropping
-its packed weights, online and offline. The encoder and training wait for a
-later slice.
+its packed weights, online and offline.
+
+Training (twin :66-98, :140-176, :256-414): the encoder, an AndrewCNN from
+(x, y) to per-pixel (mu, logvar) of the 2-channel latent at the default
+widths, and the decoder as a torch module train together on the sigma-VAE
+loss (`make_vae_loss`) by `train_CVAE`, under `exact_fp32_training`; the
+latent's
+eps comes from a torch.Generator seeded with `key`, as an argument of the
+loss. After every epoch `vars_enc` and `vars_dec` are rewritten from the
+trained modules and `weights_generation` grows, so that the offline
+evaluation runs the new decoder; the best epoch's decoder is kept in
+`decoder_opt.msgpack`.
 """
 from __future__ import annotations
 
 import os
+import time
 
+import numpy as np
 import torch
 
-from ..device import exact_fp32, resolve_device
+from ..device import exact_fp32, exact_fp32_training, resolve_device
 from ..ml.fused_conv import compute_dtype_of
-from ..ml.nets import AndrewCNN
-from ..ml.weights import params_from_jax, read_msgpack
-from .base import Parameterization, register_model
-from .cgan_regression import CGANRegression
-from .common import lev_from_nhwc, nhwc_from_lev, offline_variant, \
-    online_chain, read_scalers
+from ..ml.nets import AndrewCNN, init_weights
+from ..ml.train import Adam, TrainCheckpointer, epoch_permutation, \
+    mean_metrics, piecewise_constant_schedule
+from ..ml.weights import params_from_jax, params_to_jax, read_msgpack
+from .base import Parameterization, prepare_PV_data, register_model, \
+    save_model_args, save_variables
+from .cgan_regression import CGANRegression, evaluate_prediction, \
+    loss_to_dataset
+from .common import bn_apply, eval_in_batches, lev_from_nhwc, \
+    nhwc_from_lev, offline_variant, online_chain, read_scalers, \
+    set_scalers, train_regression
 
-__all__ = ["CVAERegression"]
+__all__ = ["CVAERegression", "make_vae_loss", "make_vae_step", "train_CVAE",
+           "vae_eps", "vae_optimizer", "vae_params"]
 
 
 @register_model
@@ -52,19 +70,70 @@ class CVAERegression(Parameterization):
         self.hidden_channels = tuple(hidden_channels)
         self.online_variant = online_variant
         self.n_latent = 2
-        self.net_mean = AndrewCNN(2, 2, div=div).to(self.device).eval() \
+
+        def net(module):
+            return module.to(self.device).eval()
+
+        self.decoder = net(AndrewCNN(2 + self.n_latent, 2,
+                                     hidden_channels=self.hidden_channels,
+                                     div=div))
+        self.encoder = net(AndrewCNN(4, 2 * self.n_latent))
+        self.net_mean = net(AndrewCNN(2, 2, div=div)) \
             if regression != "None" else None
+        self.vars_enc = None
         self.vars_dec = None
+        self.vars_mean = None
         self._online_cache = None
         self._offline_cache = None
         self.load_model(folder)
 
+    # --------------------------------------------------------------- fitting
+    def fit(self, ds_train, ds_test, num_epochs: int = 200,
+            num_epochs_regression: int = 50, batch_size: int = 64,
+            learning_rate: float = 2e-4, nruns: int = 5,
+            verbose: bool = True, key: int = 0,
+            checkpoint_every: int = 25):
+        X_train, Y_train, X_test, Y_test, x_scale, y_scale = \
+            prepare_PV_data(ds_train, ds_test)
+        set_scalers(self, x_scale, y_scale)
+        if self.regression != "None":
+            self.vars_mean, _ = train_regression(
+                self.net_mean, X_train, Y_train, X_test, Y_test,
+                num_epochs_regression, batch_size, 1e-3, verbose=verbose)
+        log = train_CVAE(self, ds_train, ds_test, X_train, Y_train,
+                         num_epochs, batch_size, learning_rate, nruns,
+                         verbose=verbose, key=key,
+                         checkpoint_every=checkpoint_every)
+        self.save_model(log)
+
+    def save_model(self, log=None):
+        os.makedirs(self.folder, exist_ok=True)
+        save_variables(self.vars_enc, f"{self.folder}/encoder.msgpack")
+        save_variables(self.vars_dec, f"{self.folder}/decoder.msgpack")
+        if self.regression != "None":
+            save_variables(self.vars_mean, f"{self.folder}/net_mean.msgpack")
+        self.x_scale.write("x_scale.json", self.folder)
+        self.y_scale.write("y_scale.json", self.folder)
+        save_model_args("CVAERegression", folder=self.folder,
+                        regression=self.regression, div=self.div,
+                        decoder_var=self.decoder_var,
+                        hidden_channels=list(self.hidden_channels))
+        if log:
+            stats, epoch = loss_to_dataset(log)
+            stats.to_npz(f"{self.folder}/stats.npz")
+            print("Optimal epoch:", epoch)
+
     def load_model(self, folder) -> bool:
+        """The folder's decoder, encoder (where `encoder.msgpack` is there:
+        only training reads it), mean net and scalers."""
         if not self._load_decoder_file(f"{folder}/decoder.msgpack"):
             return False
+        if os.path.exists(f"{folder}/encoder.msgpack"):
+            self.vars_enc = read_msgpack(f"{folder}/encoder.msgpack")
+            self.encoder.load_state_dict(params_from_jax(self.vars_enc))
         if self.net_mean is not None:
-            self.net_mean.load_state_dict(params_from_jax(
-                read_msgpack(f"{folder}/net_mean.msgpack")))
+            self.vars_mean = read_msgpack(f"{folder}/net_mean.msgpack")
+            self.net_mean.load_state_dict(params_from_jax(self.vars_mean))
         read_scalers(self, folder)
         return True
 
@@ -72,10 +141,45 @@ class CVAERegression(Parameterization):
         if not os.path.exists(path):
             return False
         self.vars_dec = read_msgpack(path)
+        self.decoder.load_state_dict(params_from_jax(self.vars_dec))
+        self._decoder_changed()
+        return True
+
+    def _decoder_changed(self) -> None:
+        """Drop the decoder's packed weights, online and offline, and count
+        a new generation."""
         self._online_cache = None
         self._offline_cache = None
         self.weights_generation += 1
-        return True
+
+    # ------------------------------------------------ training plumbing
+    # (CVAEBottleneck has its own, for its flat deep latent)
+    def _vae_modules(self) -> dict:
+        return {"enc": self.encoder, "dec": self.decoder}
+
+    def _init_vae_variables(self, generator: torch.Generator) -> None:
+        """Fresh weights, drawn from `generator`, for the encoder and then
+        the decoder, each only where the model has none (twin :140-154)."""
+        if self.vars_enc is None:
+            init_weights(self.encoder, generator)
+        if self.vars_dec is None:
+            init_weights(self.decoder, generator)
+
+    def _set_vae_variables(self) -> None:
+        """Rewrite `vars_enc` and `vars_dec` from the trained modules (twin
+        :156-160)."""
+        self.encoder.eval()
+        self.decoder.eval()
+        self.vars_enc = params_to_jax(self.encoder.state_dict())
+        self.vars_dec = params_to_jax(self.decoder.state_dict())
+        self._decoder_changed()
+
+    def _encode_train(self, x, y, train):
+        out = bn_apply(self.encoder, torch.cat([x, y], dim=-1), train)
+        return out[..., :self.n_latent], out[..., self.n_latent:]
+
+    def _decode_train(self, x, z, train):
+        return bn_apply(self.decoder, torch.cat([x, z], dim=-1), train)
 
     def use_optimal_epoch(self) -> bool:
         """Switch the decoder to the best-offline-loss epoch's weights
@@ -135,3 +239,180 @@ class CVAERegression(Parameterization):
     _mean_var_program = CGANRegression._mean_var_program
     _draws = CGANRegression._draws
     predict = CGANRegression.predict
+
+
+
+# --------------------------------------------------------------------------
+
+
+def vae_params(net) -> dict:
+    """The trainable parameters of the VAE's modules, "enc.Conv_0.weight"
+    and so on."""
+    return {f"{m}.{k}": p for m, module in net._vae_modules().items()
+            for k, p in module.named_parameters()}
+
+
+def make_vae_loss(net):
+    """The sigma-VAE objective (twin :256-289; reference
+    models/cvae_regression.py:141-176): loss_fn(x, y, ymean, eps, train) ->
+    (loss, metrics) on the model's modules, with eps the latent's standard
+    normal draw, of shape (B,) + net.latent_shape(ny, nx). Loss = the
+    pixel-summed MSE / (2 var_p) + the pixel-summed KL, batch-averaged;
+    decoder_var "adaptive" takes var_p as the batch MSE without its
+    gradient, "fixed" 1, else the number given."""
+
+    def loss_fn(x, y, ymean, eps, train):
+        mu, logvar = net._encode_train(x, y, train)
+        std = torch.exp(0.5 * logvar)
+        var = std ** 2
+        z = eps * std + mu
+        yhat = net._decode_train(x, z, train)
+        if net.regression != "None":
+            yhat = yhat + ymean
+
+        b = x.shape[0]
+        KL_pointwise = 0.5 * (mu ** 2 + var - 1.0 - logvar)
+        MSE_pointwise = (yhat - y) ** 2
+        if net.decoder_var == "adaptive":
+            var_p = MSE_pointwise.mean().detach()
+        elif net.decoder_var == "fixed":
+            var_p = 1.0
+        else:
+            var_p = float(net.decoder_var)
+        loss_recon = MSE_pointwise.reshape(b, -1).sum(-1).mean() / \
+            (2.0 * var_p)
+        loss_KL = KL_pointwise.reshape(b, -1).sum(-1).mean()
+        loss = loss_recon + loss_KL
+        metrics = {"loss": loss, "loss_recon": loss_recon,
+                   "loss_KL": loss_KL, "MSE": MSE_pointwise.mean(),
+                   "var_latent": var.mean(),
+                   "var_aggr": mu.var(correction=0) + var.mean()}
+        return loss, metrics
+
+    return loss_fn
+
+
+def make_vae_step(net, tx: Adam):
+    """step(opt_state, batch, eps) -> metrics: one VAE update on batch =
+    (x, y, ymean) in train mode under `exact_fp32_training` (the body of
+    the twin's
+    `train_epoch`, :337-347)."""
+    loss_fn = make_vae_loss(net)
+    params = vae_params(net)
+
+    def step(opt_state, batch, eps):
+        with exact_fp32_training():
+            loss, metrics = loss_fn(*batch, eps, True)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            tx.step(params, grads, opt_state)
+        return {k: v.detach() for k, v in metrics.items()}
+    return step
+
+
+def vae_optimizer(learning_rate: float, num_epochs: int, steps: int) -> Adam:
+    """Adam(learning_rate), the rate times 0.1 at 1/2, 3/4 and 7/8 of the
+    epochs' batches (twin :309-312)."""
+    sched = [int(num_epochs * f) * steps for f in (0.5, 0.75, 0.875)]
+    return Adam(piecewise_constant_schedule(learning_rate,
+                                            {b: 0.1 for b in sched}))
+
+
+def vae_eps(generator: torch.Generator, net, x: torch.Tensor):
+    """The latent's standard normal draw for the batch x (B, ny, nx, C)."""
+    B, ny, nx, _ = x.shape
+    return torch.randn((B,) + tuple(net.latent_shape(ny, nx)),
+                       generator=generator, device=generator.device,
+                       dtype=x.dtype)
+
+
+def train_CVAE(net, ds_train, ds_test, X_train, Y_train,
+               num_epochs: int, batch_size: int, learning_rate: float,
+               nruns=5, verbose=True, key: int = 0,
+               checkpoint_every: int = 25):
+    """The VAE's training loop (twin :292-414). numpy's default_rng(key)
+    shuffles; a torch.Generator seeded with `key` on the model's device
+    draws the fresh weights and every batch's eps. Adam(learning_rate),
+    on `vae_optimizer`'s schedule. The carry (the
+    modules, the optimizer's state and the best decoder so far) is
+    checkpointed to `vae_train_ckpt.npz` every `checkpoint_every` epochs;
+    the best decoder by offline loss goes to `decoder_opt.msgpack`. Returns
+    the log."""
+    rng = np.random.default_rng(key)
+    generator = torch.Generator(device=net.device).manual_seed(int(key))
+    n = len(X_train)
+    steps = int(np.ceil(n / batch_size))
+
+    Y_mean = eval_in_batches(net.net_mean, X_train, net.device) \
+        if net.regression != "None" else np.zeros_like(Y_train)
+
+    tx = vae_optimizer(learning_rate, num_epochs, steps)
+    net._init_vae_variables(generator)
+    opt_state = tx.init(vae_params(net))
+    Xd, Yd, Md = (torch.as_tensor(a, device=net.device)
+                  for a in (X_train, Y_train, Y_mean))
+    step = make_vae_step(net, tx)
+
+    log: dict = {}
+    best = {"loss": float("inf"), "vars_dec": None, "epoch": 0}
+    best_template = params_to_jax(net.decoder.state_dict())
+
+    def carry():
+        return {"modules": {k: m.state_dict()
+                            for k, m in net._vae_modules().items()},
+                "opt": opt_state,
+                "best": best["vars_dec"] if best["vars_dec"] is not None
+                else best_template}
+
+    ckpt = TrainCheckpointer(net.folder, checkpoint_every,
+                             name="vae_train_ckpt")
+    epoch0 = 0
+    resumed = ckpt.restore(carry(), generator)
+    if resumed is not None:
+        epoch0, saved, log, rng, generator, extra = resumed
+        for k, m in net._vae_modules().items():
+            m.load_state_dict(saved["modules"][k])
+        opt_state = saved["opt"]
+        if extra.get("best_epoch", 0) > 0:
+            best = {"loss": extra["best_loss"], "vars_dec": saved["best"],
+                    "epoch": extra["best_epoch"]}
+        net._set_vae_variables()
+        if verbose:
+            print(f"resuming VAE training from epoch {epoch0}")
+
+    t_s = time.time()
+    for epoch in range(epoch0, num_epochs):
+        t_e = time.time()
+        perm = torch.as_tensor(epoch_permutation(rng, n, batch_size),
+                               device=net.device)
+        rows = []
+        for idx in perm:
+            x = Xd[idx]
+            rows.append(step(opt_state, (x, Yd[idx], Md[idx]),
+                             vae_eps(generator, net, x)))
+        net._set_vae_variables()
+        row = mean_metrics(rows)
+        if nruns:
+            row.update(evaluate_prediction(net, ds_train, nruns, key=epoch))
+            row.update({f"{k}_test": v for k, v in evaluate_prediction(
+                net, ds_test, nruns, key=epoch).items()})
+            opt_loss = row.get("L2_total_test", np.inf) + \
+                row.get("L2_residual_test", np.inf)
+            if opt_loss < best["loss"]:
+                best.update(loss=opt_loss, epoch=epoch + 1,
+                            vars_dec=net.vars_dec)
+        for k, v in row.items():
+            log.setdefault(k, []).append(v)
+        ckpt.maybe_save(
+            epoch + 1, carry(), log, rng, generator,
+            extra={"best_loss": best["loss"] if best["epoch"] else 0.0,
+                   "best_epoch": best["epoch"]})
+        if verbose:
+            t = time.time()
+            eta = (t - t_s) * (num_epochs / (epoch + 1) - 1)
+            print(f"[{epoch + 1}/{num_epochs}] [{t - t_e:.2f}/{eta:.2f}] "
+                  f"MSE: {row['MSE']:.4g} KL: {row['loss_KL']:.4g}")
+    ckpt.clear()
+    if best["vars_dec"] is not None:
+        os.makedirs(net.folder, exist_ok=True)
+        save_variables(best["vars_dec"], f"{net.folder}/decoder_opt.msgpack")
+    return log

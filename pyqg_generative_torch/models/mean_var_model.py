@@ -14,7 +14,9 @@ one kernel call runs; otherwise each net is its own call. The twin's
 :181-197) runs the two nets in float32, each as a BN-folded chain of its own
 through K1 or K2 (`common.offline_variant`), and samples with numpy's
 `default_rng(0)` as the twin does, so that both packages draw the same
-sample. Training waits for a later slice.
+sample. `fit` trains the two nets in turn (twin :52-76): the mean net by MSE
+regression, then the variance net on the squared residuals of the mean net
+in eval mode; `save_model` writes the twin's folder (:78-90).
 """
 from __future__ import annotations
 
@@ -28,14 +30,14 @@ from ..device import exact_fp32, resolve_device
 from ..ml.fused_conv import compute_dtype_of, make_online_cnn, \
     merge_folded_pair
 from ..ml.nets import AndrewCNN, VarCNN, fold_batchnorm
-from ..ml.train import apply_in_batches
+from ..ml.train import apply_in_batches, log_to_dataset
 from ..ml.weights import params_from_jax, read_msgpack
 from ..utils import xrlite as xr
 from .base import Parameterization, array_to_dataset, extract, \
-    register_model
+    prepare_PV_data, register_model, save_model_args, save_variables
 from .cgan_regression import CGANRegression
-from .common import lev_from_nhwc, nhwc_from_lev, offline_variant, \
-    read_scalers
+from .common import eval_in_batches, lev_from_nhwc, nhwc_from_lev, \
+    offline_variant, read_scalers, set_scalers, train_regression
 
 __all__ = ["MeanVarModel"]
 
@@ -59,6 +61,46 @@ class MeanVarModel(Parameterization):
         self._online_cache = None
         self._offline_cache = None
         self.load_model(folder)
+
+    # ------------------------------------------------------------- training
+    def fit(self, ds_train, ds_test, num_epochs: int = 50,
+            batch_size: int = 64, learning_rate: float = 1e-3,
+            verbose: bool = True, **kw):
+        X_train, Y_train, X_test, Y_test, x_scale, y_scale = \
+            prepare_PV_data(ds_train, ds_test)
+        set_scalers(self, x_scale, y_scale)
+        self.vars_mean, log_mean = train_regression(
+            self.net_mean, X_train, Y_train, X_test, Y_test,
+            num_epochs, batch_size, learning_rate, verbose=verbose,
+            checkpoint_dir=os.path.join(self.folder, "ckpt_mean"))
+
+        # second stage: the variance net on the squared residuals
+        # (reference models/mean_var_model.py:55-64)
+        Yhat_train = eval_in_batches(self.net_mean, X_train, self.device)
+        Yhat_test = eval_in_batches(self.net_mean, X_test, self.device)
+        rsq_train = (Y_train - Yhat_train) ** 2
+        rsq_test = (Y_test - Yhat_test) ** 2
+        self.vars_var, log_var = train_regression(
+            self.net_var, X_train, rsq_train, X_test, rsq_test,
+            num_epochs, batch_size, learning_rate, verbose=verbose,
+            checkpoint_dir=os.path.join(self.folder, "ckpt_var"))
+        self._online_cache = None
+        self._offline_cache = None
+        self.weights_generation += 1
+        self.save_model(log_mean, log_var)
+
+    def save_model(self, log_mean=None, log_var=None):
+        os.makedirs(self.folder, exist_ok=True)
+        save_variables(self.vars_mean, f"{self.folder}/net_mean.msgpack")
+        save_variables(self.vars_var, f"{self.folder}/net_var.msgpack")
+        self.x_scale.write("x_scale.json", self.folder)
+        self.y_scale.write("y_scale.json", self.folder)
+        save_model_args("MeanVarModel", folder=self.folder,
+                        hidden_channels=list(self.hidden_channels))
+        if log_mean:
+            log_to_dataset(log_mean).to_npz(f"{self.folder}/stats_mean.npz")
+        if log_var:
+            log_to_dataset(log_var).to_npz(f"{self.folder}/stats_var.npz")
 
     def load_model(self, folder) -> bool:
         if not os.path.exists(f"{folder}/net_mean.msgpack"):

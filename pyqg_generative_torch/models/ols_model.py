@@ -5,7 +5,9 @@ Twin of the online half of `pyqg_generative_tpu/models/ols_model.py`
 `final_activation` and `div`, on the PV normalised by the saved scaler; zero
 predicted variance. The twin runs it through XLA with its BatchNorms
 unfolded, so the port runs it through cuDNN under `exact_fp32`, online and
-in the offline `predict` (twin :93-104). Training waits for a later slice.
+in the offline `predict` (twin :93-104). `fit` trains it by MSE regression
+on the model's device (`common.train_regression`, checkpointed under
+`folder/ckpt`) and `save_model` writes the twin's folder (twin :44-65).
 """
 from __future__ import annotations
 
@@ -15,12 +17,13 @@ import torch
 
 from ..device import exact_fp32, resolve_device
 from ..ml.nets import AndrewCNN
-from ..ml.train import apply_in_batches
+from ..ml.train import apply_in_batches, log_to_dataset
 from ..ml.weights import params_from_jax, read_msgpack
 from ..utils import xrlite as xr
 from .base import Parameterization, array_to_dataset, extract, \
-    register_model
-from .common import lev_from_nhwc, nhwc_from_lev, read_scalers
+    prepare_PV_data, register_model, save_model_args, save_variables
+from .common import lev_from_nhwc, nhwc_from_lev, read_scalers, \
+    set_scalers, train_regression
 
 __all__ = ["OLSModel"]
 
@@ -44,6 +47,32 @@ class OLSModel(Parameterization):
                              div=div).to(self.device).eval()
         self.variables = None
         self.load_model(folder)
+
+    # ------------------------------------------------------------- training
+    def fit(self, ds_train, ds_test, num_epochs: int = 50,
+            batch_size: int = 64, learning_rate: float = 1e-3,
+            verbose: bool = True, **kw):
+        X_train, Y_train, X_test, Y_test, x_scale, y_scale = \
+            prepare_PV_data(ds_train, ds_test)
+        set_scalers(self, x_scale, y_scale)
+        self.variables, log = train_regression(
+            self.net, X_train, Y_train, X_test, Y_test,
+            num_epochs, batch_size, learning_rate, verbose=verbose,
+            checkpoint_dir=os.path.join(self.folder, "ckpt"))
+        self.weights_generation += 1
+        self.save_model(log)
+
+    def save_model(self, log=None):
+        os.makedirs(self.folder, exist_ok=True)
+        save_variables(self.variables, f"{self.folder}/net.msgpack")
+        self.x_scale.write("x_scale.json", self.folder)
+        self.y_scale.write("y_scale.json", self.folder)
+        save_model_args("OLSModel", folder=self.folder, div=self.div,
+                        batch_norm=self.batch_norm, bias=self.bias,
+                        final_activation=self.final_activation,
+                        hidden_channels=list(self.hidden_channels))
+        if log:
+            log_to_dataset(log).to_npz(f"{self.folder}/stats.npz")
 
     def load_model(self, folder) -> bool:
         if not os.path.exists(f"{folder}/net.msgpack"):

@@ -63,9 +63,11 @@ def test_no_jax_imports():
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ("qg/operators", "models/physical", "models/ann_model",
                    "models/ols_model", "models/cvae_bottleneck",
+                   "models/cvae_regression", "models/cgan_regression",
+                   "models/mean_var_model", "models/common", "models/base",
                    "ml/weights", "ml/nets", "ml/train", "qg/spectral",
                    "eval/__init__", "eval/comparison", "eval/metrics",
-                   "eval/forecast", "entry"):
+                   "eval/forecast", "entry", "utils/checkpoints"):
         assert f"pyqg_generative_torch/{module}.py" in names
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
@@ -902,3 +904,47 @@ def test_forcing_graphed_dns_equals_eager_on_card(monkeypatch):
             np.testing.assert_array_equal(graphed[combo][k].values,
                                           eager[combo][k].values,
                                           err_msg=f"{combo} {k}")
+
+
+@pytest.mark.cuda
+def test_gan_batch_step_on_card_matches_cpu():
+    """One GAN batch step (critic and generator, i = 0) on the card in
+    float32 against the CPU in float64, on the same seeded weights, batch
+    and draws: each loss to relative 1e-5 and each gradient tensor to
+    relative RMS 1e-4. The step runs PyTorch's own convolutions
+    (`device.exact_fp32_training`): no chain kernel launches."""
+    _need_card()
+    from pyqg_generative_torch.ml.train import named_params
+    from pyqg_generative_torch.ml.weights import params_from_jax
+    from pyqg_generative_torch.models import cgan_regression as gan
+    rng = np.random.default_rng(5)
+    nx, B = 32, 4
+    arrays = [rng.standard_normal((B, nx, nx, 2)) for _ in range(2)] + \
+        [np.zeros((B, nx, nx, 2))] + \
+        [rng.standard_normal((B, nx, nx, 2)) for _ in range(2)] + \
+        [rng.random((B, 1, 1, 1)), np.asarray(True)]
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        m = CGANRegression(nx=nx, folder="missing", device=dev,
+                           hidden_channels=(32, 16))
+        for module, seed in ((m.G, 1), (m.D, 2)):
+            module.load_state_dict(params_from_jax(seeded_variables(
+                module, seed)))
+            module.to(dtype)
+        t = [torch.as_tensor(a, device=dev, dtype=dtype if a.dtype != bool
+                             else torch.bool) for a in arrays]
+        txG, txD = gan.gan_optimizers(2e-4, 2, 3)
+        opt = {"G": txG.init(named_params(m.G)),
+               "D": txD.init(named_params(m.D))}
+        grads = {}
+        before = fused_conv.launches
+        metrics = gan.make_gan_batch_step(m, txG, txD)(
+            opt, tuple(t[:3]), 0, tuple(t[3:]), grads)
+        assert fused_conv.launches == before
+        out[dev] = metrics, grads
+    (mc, gc), (mr, gr) = out["cuda"], out["cpu"]
+    for k in mr:
+        assert abs(float(mc[k]) / float(mr[k]) - 1) < 1e-5, k
+    for net in ("D", "G"):
+        for k, g in gr[net].items():
+            assert _rel_rms(gc[net][k].double().cpu(), g) <= 1e-4, (net, k)
