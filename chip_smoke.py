@@ -130,9 +130,21 @@ Phases, in order; any failure raises and the exit code is nonzero:
      never probes, so K3 does not launch), q finite, K1-bf16 by the
      per-layer check on the step's chain input, K3 against its plain
      version.
+11. training (see REDUCED_11 and training_path);
+12. the experiment pipeline through its own functions (exp/pipeline.py,
+   exp/cli.py, ml/multifit.py) into the ignored build/phase12/, each stage
+   with the counts set to 0 just before it and read just after (see
+   REDUCED_12): run_forcing_datasets (12 runs of the 256^2 DNS to 64^2,
+   Operator1 and Operator2, advanced together), train_parameterizations
+   (GZ, GAN, VAE at the committed widths, 1 epoch), fit_gan_ensemble and
+   fit_vae_ensemble (K = 2, the VAE with "packed": K2 in its evaluation),
+   each replica bitwise equal to its own fit on the card, run_reference and
+   run_parameterized of the phase's GAN at 10 x 64^2 (K1 under the graph)
+   with compute_online_metrics, run_forecasting and run_forecast_truth,
+   train_ANN, and each CLI subcommand once through cli.main.
 It prints a JSON line of the step profiles, one of phase 9's readings, one
-of phase 10's, one of kernel measurements, then the nvidia-smi line, and
-last {"ok": true, "device": {...}}. In the kernel
+each of phases 10, 11 and 12, one of kernel measurements, then the
+nvidia-smi line, and last {"ok": true, "device": {...}}. In the kernel
 line, launches is the path's wrapper calls in phase 4's graphed runs, and
 graph_replays the replayed steps there, each of which launches the kernel
 as an eager step does; max_abs_err is max|kernel - plain| at the path's
@@ -142,7 +154,8 @@ groups=2. K1 and K2 carry layer_ms, their device ms a layer, and K2 its bf16
 reading. Each row's "phase10" holds the kernel at phase 10's shapes (K1 and
 K2 at the offline batch, K1-bf16 at entry()'s one member, K3 at the probe's
 shape): its batch, its launches in phase 10's runs, max|kernel - plain|,
-its ms, its plain version's and the library's, and its bound.
+its ms, its plain version's and the library's, and its bound. K1's and
+K2's rows also hold "phase11" and "phase12", their launches there.
 
 Run from the repository root: python3 chip_smoke.py
 Where CUDA is not available it exits with code 1 and prints no result.
@@ -221,6 +234,28 @@ REDUCED_11 = ("the training data from 48 members of a 1,600-step 256^2 DNS "
               "steps (exp/pipeline.py:43-57); 2 epochs, where the paper "
               "trains 200 (50 for the regression nets); M = 64 offline; "
               "widths, grids, batch 64 and the rates as published")
+# phase 12: the experiment pipeline (exp/pipeline.py, exp/cli.py,
+# ml/multifit.py) through its own functions into PIPE_DIR: PIPE_RUNS forcing
+# runs of the DNS_NX^2 eddy DNS (every split of train_parameterizations
+# non-empty at its default fractions), PIPE_SNAPS snapshots every
+# PIPE_SNAP_STEPS steps, coarse-grained to NX^2 by Operator1 and Operator2;
+# PIPE_EPOCHS epochs of each closure at batch TRAIN_BATCH, the committed
+# widths; replicas PIPE_KEYS; references and the online GAN for
+# PIPE_ONLINE_STEPS steps at NX^2 (PIPE_SNAPS_ONLINE snapshots of
+# ANDREW_1000_STEPS); forecasts of PIPE_DAYS days, PIPE_FORECAST_ENS members
+PIPE_DIR = ROOT / "build" / "phase12"
+PIPE_RUNS, PIPE_SNAPS, PIPE_SNAP_STEPS, PIPE_EPOCHS = 12, 4, 250, 1
+PIPE_KEYS = (0, 1)
+PIPE_ONLINE_STEPS, PIPE_SNAPS_ONLINE = 500, 2
+PIPE_DAYS, PIPE_FORECAST_ENS = 5.0, 15
+OFFLINE_KEYS = ("L2_mean", "L2_total", "L2_residual")
+REDUCED_12 = ("12 forcing runs of 1,000 DNS steps at 256^2, where the "
+              "pipeline runs 300 of 87,600 (exp/pipeline.py:43-57); 1 "
+              "epoch and 1 realization, where it trains 200 (50) and 5; "
+              "references and online runs of 500 steps at 64^2 (the 256^2 "
+              "reference with 2 members), where they run 20 years; "
+              "forecasts of 2 ICs and 5 days, where they run 15 and 90; "
+              "widths, grids, batch 64 and M = 1000 as published")
 COUNTS = ("launches", "launches_bf16", "launches_packed", "launches_probe")
 LIBRARIES = ("fused_conv", "packed_chain", "bitcast_probe")
 # peak rates and memory rate of one H100 SXM (NVIDIA data sheet, 700 W):
@@ -2080,6 +2115,278 @@ def training_path(fused_conv, graph, rows, smi):
     out["seconds"] = time.perf_counter() - t0
     return out
 
+
+# --------------------------------------------------------------------------
+# phase 12: the experiment pipeline
+# --------------------------------------------------------------------------
+
+def pipeline_stage(name, fn, fused_conv, graph, stages, smi):
+    """One stage of phase 12, with the counts set to 0 just before it and
+    read just after: its seconds, launch counts and graph counts go into
+    stages[name]. Returns fn()'s result."""
+    set_counts(fused_conv, graph)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, gsteps = read_counts(fused_conv, graph)
+    stages[name] = {"seconds": seconds, "launches": counts,
+                    "graph_counts": gsteps}
+    log(f"phase 12, {name}: {seconds:.2f} s, launches {counts}, graph "
+        f"counts {gsteps} on {smi}")
+    return out
+
+
+def _finite_files(pattern, n, what, keys=("q",)):
+    """The n .npz files of `pattern`, each holding `keys`, finite."""
+    import glob
+
+    from pyqg_generative_torch.utils import xrlite as xr
+    files = sorted(glob.glob(pattern))
+    if len(files) != n:
+        raise AssertionError(f"phase 12 {what}: {len(files)} files of "
+                             f"{pattern}, expected {n}")
+    for f in files:
+        ds = xr.Dataset.from_npz(f)
+        for k in keys:
+            if not np.isfinite(ds[k].values).all():
+                raise AssertionError(f"phase 12 {what}: {f} {k} not finite")
+    return files
+
+
+def _same_modules(a, b, names, files, what):
+    """Two trained models' modules bitwise equal, and their files byte for
+    byte; raises with the first that differs."""
+    for name in names:
+        sa, sb = getattr(a, name).state_dict(), getattr(b, name).state_dict()
+        for k in sa:
+            if not torch.equal(sa[k], sb[k]):
+                raise AssertionError(f"phase 12 {what}: {name}.{k} differs "
+                                     f"by {float((sa[k] - sb[k]).abs().max())}")
+    for f in files:
+        if (pathlib.Path(a.folder) / f).read_bytes() != \
+                (pathlib.Path(b.folder) / f).read_bytes():
+            raise AssertionError(f"phase 12 {what}: {f} differs")
+
+
+def multifit_on_card(base, splits):
+    """fit_gan_ensemble and fit_vae_ensemble (the VAE with "packed": its
+    offline evaluation through K2), K = 2 at the committed widths, each
+    replica bitwise equal to its own fit with the same key on the card."""
+    from pyqg_generative_torch.ml.multifit import fit_gan_ensemble, \
+        fit_vae_ensemble
+    from pyqg_generative_torch.models import CGANRegression, CVAERegression
+    ds_train, ds_val = splits
+    fit_kw = dict(num_epochs=PIPE_EPOCHS, batch_size=TRAIN_BATCH, nruns=2,
+                  verbose=False)
+    kinds = {
+        "gan": (lambda f: CGANRegression(nx=NX, folder=f, device=DEV),
+                fit_gan_ensemble, dict(retain_every=1), ("G", "D"),
+                ("G.msgpack", "G_opt.msgpack", "stats.npz",
+                 "epoch_bank/G_1.msgpack")),
+        "vae": (lambda f: CVAERegression(folder=f, online_variant="packed",
+                                         device=DEV),
+                fit_vae_ensemble, {}, ("encoder", "decoder"),
+                ("decoder.msgpack", "decoder_opt.msgpack", "stats.npz")),
+    }
+    out = {}
+    for kind, (make, fit, extra, modules, files) in kinds.items():
+        singles = []
+        for key in PIPE_KEYS:
+            m = make(str(base / f"{kind}_fit{key}"))
+            m.fit(ds_train, ds_val, key=key, **fit_kw, **extra)
+            singles.append(m)
+        replicas = [make(str(base / f"{kind}_replica{key}"))
+                    for key in PIPE_KEYS]
+        t0 = time.perf_counter()
+        fit(replicas, [ds_train] * len(replicas), [ds_val] * len(replicas),
+            keys=PIPE_KEYS, **fit_kw, **extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for m, r in zip(singles, replicas):
+            _same_modules(m, r, modules, files, f"{kind} replica")
+        out[kind] = {"replicas": len(replicas), "bitwise_equal": True,
+                     "ensemble_seconds": seconds}
+        log(f"phase 12, {kind} ensemble of {len(replicas)} replicas: each "
+            f"bitwise equal to its own fit (modules, {', '.join(files)}); "
+            f"the ensemble in {seconds:.2f} s")
+    return out
+
+
+def cli_on_card(base, gan, ref_hi, forcing_glob):
+    """Every subcommand of the port's CLI once, on the card (its default
+    device): outputs present and finite; `parameterized` runs the phase's
+    GAN at --model-weight 0.5."""
+    from pyqg_generative_torch.exp import cli
+    d = base / "cli"
+    runs = {
+        "reference": (["--nx", str(NX), "--params",
+                       json.dumps({"tmax": 20 * 14400.0, "tavestart": 0.0}),
+                       "--sampling-freq", str(10 * 14400.0), "--n-ens", "2"],
+                      "*.npz", 2),
+        "forcing": (["--nx", str(DNS_NX), "--params",
+                     json.dumps({"tmax": 40 * 3600.0}), "--sampling-freq",
+                     str(20 * 3600.0), "--nc", f"[{NX}]"],
+                    "Operator2-*/0.npz", 1),
+        "parameterized": (["--nx", str(NX), "--params",
+                           json.dumps({"tmax": 40 * 14400.0,
+                                       "tavestart": 0.0}),
+                           "--sampling-freq", str(20 * 14400.0),
+                           "--model-folder", gan, "--n-ens", str(MEMBERS),
+                           "--model-weight", "0.5"], "*.npz", MEMBERS),
+        "forecast": (["--nx", str(NX), "--params",
+                      json.dumps({"tmax": 2 * 86400.0}),
+                      "--initial-condition", f"{ref_hi}/0.npz",
+                      "--operator", "Operator1", "--model-folder", gan,
+                      "--n-ens", "3"], "0.npz", 1),
+    }
+    for sub, (args, pattern, n) in runs.items():
+        cli.main([sub] + args + ["--subfolder", str(d / sub)])
+        _finite_files(str(d / sub / pattern), n, f"cli {sub}")
+    cli.main(["train", "--model", "OLSModel", "--fit-args",
+              json.dumps({"num_epochs": 1, "batch_size": TRAIN_BATCH,
+                          "verbose": False}),
+              "--model-folder", str(d / "train"), "--train-path",
+              forcing_glob, "--ensemble-size", "16"])
+    _finite_files(str(d / "train" / "offline_test.npz"), 1, "cli train",
+                  OFFLINE_KEYS)
+    cli.main(["metrics", "--model-path", str(d / "parameterized" / "*.npz"),
+              "--target-path", f"{ref_hi}/.coarse_Operator1_{NX}.npz",
+              "--save-file", str(d / "metrics.json"), "--T", "2",
+              "--key-name", "cli"])
+    with open(d / "metrics.json") as f:
+        metrics = json.load(f)
+    if metrics.pop("key") != "cli" or not np.isfinite(
+            list(metrics.values())).all():
+        raise AssertionError(f"phase 12 cli metrics: {metrics}")
+    return len(metrics)
+
+
+def pipeline_path(fused_conv, graph, rows, smi):
+    """Phase 12: the pipeline through its own functions into PIPE_DIR (see
+    the module's docstring), each stage with the counts set to 0 just
+    before it and read just after; K1's and K2's launches over the phase go
+    into their kernel rows."""
+    import shutil
+
+    from pyqg_generative_torch.exp import pipeline
+    from pyqg_generative_torch.qg.params import YEAR, dt_for_nx
+    from pyqg_generative_torch.utils import xrlite as xr
+    t0 = time.perf_counter()
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    base = str(PIPE_DIR)
+    eddy = PIPE_DIR / "eddy"
+    stages, out = {}, {"reduced": REDUCED_12}
+
+    def stage(name, fn):
+        return pipeline_stage(name, fn, fused_conv, graph, stages, smi)
+
+    dns_dt = dt_for_nx(DNS_NX)
+    stage("run_forcing_datasets", lambda: pipeline.run_forcing_datasets(
+        base, n_runs=PIPE_RUNS, Nc=(NX,), dns_nx=DNS_NX,
+        years=(PIPE_SNAPS * PIPE_SNAP_STEPS + 0.5) * dns_dt / YEAR,
+        sampling_freq=PIPE_SNAP_STEPS * dns_dt, batch=PIPE_RUNS,
+        device=DEV))
+    dns_steps = PIPE_SNAPS * PIPE_SNAP_STEPS
+    g = stages["run_forcing_datasets"]["graph_counts"]
+    if g["eager_steps"] + g["replayed_steps"] != dns_steps or \
+            any(stages["run_forcing_datasets"]["launches"].values()):
+        raise AssertionError(f"phase 12 forcing: {stages}")
+    for op in ("Operator1", "Operator2"):
+        _finite_files(str(eddy / f"{op}-{NX}-dealias" / "*.npz"), PIPE_RUNS,
+                      f"forcing {op}", ("q", "q_forcing_advection"))
+    forcing_glob = str(eddy / f"Operator1-{NX}-dealias" / "*.npz")
+
+    stage("train_parameterizations", lambda: pipeline.train_parameterizations(
+        base, operators=("Operator1",), resolutions=(NX,), realizations=1,
+        fit_kw=dict(num_epochs=PIPE_EPOCHS, batch_size=TRAIN_BATCH, nruns=2,
+                    verbose=False), device=DEV))
+    models = eddy / f"models_Operator1_{NX}"
+    for name in ("MeanVarModel-0", "CGANRegression-0", "CVAERegression-0"):
+        _finite_files(str(models / name / "offline_test.npz"), 1, name,
+                      OFFLINE_KEYS)
+    gan = str(models / "CGANRegression-0")
+
+    ds = xr.open_mfdataset(forcing_glob, "run")
+    s_train, s_val, _ = pipeline.run_splits(ds["q"].sizes()["run"])
+    out["multifit"] = stage("multifit", lambda: multifit_on_card(
+        PIPE_DIR / "multifit", (ds.isel(run=s_train), ds.isel(run=s_val))))
+
+    years = (PIPE_ONLINE_STEPS + 0.5) * dt_for_nx(NX) / YEAR
+    ref_hi = str(eddy / f"reference_{DNS_NX}")
+    stage("run_reference", lambda: (
+        pipeline.run_reference(base, resolutions=(NX,), n_ens=MEMBERS,
+                               years=years, device=DEV),
+        pipeline.run_reference(base, resolutions=(DNS_NX,), n_ens=2,
+                               years=years, device=DEV)))
+    stage("run_parameterized", lambda: pipeline.run_parameterized(
+        base, gan, nx=NX, n_ens=MEMBERS, years=years, device=DEV))
+    c, g = (stages["run_parameterized"][k]
+            for k in ("launches", "graph_counts"))
+    if c["launches"] != g["eager_steps"] + g["captured_steps"] or \
+            g["replayed_steps"] < 1:
+        raise AssertionError(f"phase 12 run_parameterized: {c}, {g}")
+    _finite_files(f"{gan}/online/*.npz", MEMBERS, "online")
+    scores = {}
+    for key, folder, sub in (("gan", gan, "online"),
+                             ("none", str(eddy), f"reference_{NX}")):
+        norm = stage(f"compute_online_metrics ({key})",
+                     lambda: pipeline.compute_online_metrics(
+                         base, folder, f"{ref_hi}/*.npz", "Operator1", NX,
+                         subfolder=sub, T=PIPE_SNAPS_ONLINE, device=DEV))
+        if not np.isfinite([v for k, v in norm.items() if k != "key"]).all():
+            raise AssertionError(f"phase 12 scores ({key}): {norm}")
+        scores[key] = {k: norm[k] for k in ("distrib_score",
+                                            "spectral_score")}
+    # the closure's mark on the flow: both runs start from the same states
+    q_gan, q_none = (xr.Dataset.from_npz(f)["q"].values for f in (
+        f"{gan}/online/0.npz", str(eddy / f"reference_{NX}" / "0.npz")))
+    scores["gan_vs_none_max_dq"] = float(
+        np.abs(q_gan - q_none).max() / np.abs(q_none).max())
+    out["scores"] = scores
+    log(f"phase 12, scores after {PIPE_ONLINE_STEPS} steps (readings; the "
+        f"1-epoch GAN's run against the unforced one from the same states, "
+        f"max|dq| / max|q| {scores['gan_vs_none_max_dq']:.3e}): {scores}")
+
+    forecast = dict(nx=NX, operator="Operator1", n_ic=2, days=PIPE_DAYS,
+                    device=DEV)
+    stage("run_forecasting", lambda: pipeline.run_forecasting(
+        base, gan, f"{ref_hi}/*.npz", n_ens=PIPE_FORECAST_ENS,
+        decorrelations=(0, 12), **forecast))
+    stage("run_forecast_truth", lambda: pipeline.run_forecast_truth(
+        base, f"{ref_hi}/*.npz", truth_nx=DNS_NX, **forecast))
+    for dec in (0, 12):
+        for f in _finite_files(str(PIPE_DIR / "forecast" /
+                                   f"decorrelation-{dec}h" / "*.npz"), 2,
+                               f"forecast {dec}h", ("q", "q_mean", "q_std")):
+            if xr.Dataset.from_npz(f).attrs["n_ens_stat"] != \
+                    PIPE_FORECAST_ENS - 1:
+                raise AssertionError(f"phase 12 forecast {f}: n_ens_stat")
+    _finite_files(str(PIPE_DIR / "forecast" / "truth_*.npz"), 2, "truth")
+
+    stage("train_ANN", lambda: pipeline.train_ANN(
+        base, configurations=("eddy",), resolutions=(NX,),
+        fit_kw=dict(num_epochs=PIPE_EPOCHS, verbose=False), device=DEV))
+    _finite_files(str(PIPE_DIR / "ann_model" / f"offline_eddy-{NX}.npz"), 1,
+                  "train_ANN", OFFLINE_KEYS)
+    out["cli_metrics_keys"] = stage("cli", lambda: cli_on_card(
+        PIPE_DIR, gan, ref_hi, forcing_glob))
+    g = stages["cli"]["graph_counts"]
+    if g["replayed_steps"] < 1:
+        raise AssertionError(f"phase 12 cli: no replayed step: {g}")
+
+    launches = {k: sum(st["launches"][k] for st in stages.values())
+                for k in COUNTS}
+    if not launches["launches"] or not launches["launches_packed"]:
+        raise AssertionError(f"phase 12 launched no K1 or no K2: {launches}")
+    rows["k1"]["phase12"] = {"launches": launches["launches"]}
+    rows["k2"]["phase12"] = {"launches": launches["launches_packed"]}
+    out.update(stages=stages, launches=launches,
+               seconds=time.perf_counter() - t0)
+    return out
+
+
 def _group(name: str) -> str:
     low = name.lower()
     if "conv_fma_kernel" in name:
@@ -2284,10 +2591,14 @@ def main():
     # 11. training
     phase11 = training_path(fused_conv, graph, rows, smi)
     log(f"phase 11 took {phase11['seconds']:.1f} s")
+    # 12. the experiment pipeline
+    phase12 = pipeline_path(fused_conv, graph, rows, smi)
+    log(f"phase 12 took {phase12['seconds']:.1f} s")
     print(json.dumps({"step_profile": profiles}))
     print(json.dumps({"every_closure": zoo_readings, "card": smi}))
     print(json.dumps({"scoring_path": phase10, "card": smi}))
     print(json.dumps({"training": phase11, "card": smi}))
+    print(json.dumps({"pipeline": phase12, "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

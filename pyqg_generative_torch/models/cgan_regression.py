@@ -77,7 +77,8 @@ from .common import bn_apply, draw_chunks, eval_in_batches, lev_from_nhwc, \
 
 __all__ = ["CGANRegression", "evaluate_prediction", "loss_to_dataset",
            "gan_draws", "gan_optimizers", "make_gan_batch_step",
-           "train_CGAN"]
+           "GenerativeTrainer", "GanTrainer", "SingleCheckpointer",
+           "device_data", "run_epochs", "train_CGAN"]
 
 LAMBDA_DRIFT = 1e-3
 LAMBDA_GP = 10.0
@@ -602,110 +603,220 @@ def gan_optimizers(learning_rate: float, num_epochs: int, steps: int):
                                                   b2=0.999)
 
 
-def train_CGAN(net: CGANRegression, ds_train, ds_test, X_train, Y_train,
-               num_epochs: int, batch_size: int, learning_rate: float,
-               nruns=5, verbose=True, key: int = 0,
-               checkpoint_every: int = 25, retain_every: int = 0):
-    """The GAN's training loop (twin :575-713). numpy's default_rng(key)
-    shuffles, a torch.Generator seeded with `key` on the model's device
-    draws the fresh weights (G, then D, where the model has none) and every
-    batch's draws. Every `checkpoint_every` epochs the carry (G and D with
-    their optimizer states, and the best generator so far) is checkpointed
-    to `gan_train_ckpt.npz`, from which a restarted run resumes bit for bit.
-    retain_every > 0 banks the generator every `retain_every` epochs to
-    `epoch_bank/G_<epoch>.msgpack`; the best generator by offline loss goes
-    to `G_opt.msgpack`. Returns the log."""
-    rng = np.random.default_rng(key)
-    generator = torch.Generator(device=net.device).manual_seed(int(key))
-    n = len(X_train)
-    steps = int(np.ceil(n / batch_size))
+class GenerativeTrainer:
+    """One replica's training (`train_CGAN`, `train_CVAE`, and each replica
+    of `ml.multifit`): the model, numpy's default_rng(key), which shuffles,
+    and a torch.Generator seeded with `key` on the model's device, which
+    draws the fresh weights and every batch's draws; the optimizers' state,
+    the log and the best epoch by offline loss, whose weights go to
+    `best_file`. A subclass supplies `step`, `trained`, `carry`, `load`,
+    `best_vars` and `describe`."""
 
+    best_file = ""
+
+    def __init__(self, net, key: int, n: int, batch_size: int):
+        self.net = net
+        self.rng = np.random.default_rng(key)
+        self.generator = torch.Generator(device=net.device).manual_seed(
+            int(key))
+        self.n, self.batch_size = n, batch_size
+        self.log: dict = {}
+        self.best = {"loss": float("inf"), "vars": None, "epoch": 0}
+
+    def batches(self) -> torch.Tensor:
+        """This epoch's shuffled batches, (steps, batch_size) indices."""
+        return torch.as_tensor(
+            epoch_permutation(self.rng, self.n, self.batch_size),
+            device=self.net.device)
+
+    def end_epoch(self, epoch: int, rows: list, ds_train, ds_test,
+                  nruns, retain_every: int = 0) -> dict:
+        """The epoch's row of the log: the batches' mean metrics and, with
+        `nruns`, the offline scores on both datasets; the best epoch by
+        offline loss is kept beside the last (the reference logs Epoch_opt
+        but keeps only the last)."""
+        self.trained()
+        row = mean_metrics(rows)
+        if nruns:
+            row.update(evaluate_prediction(self.net, ds_train, nruns,
+                                           key=epoch))
+            row.update({f"{k}_test": v for k, v in evaluate_prediction(
+                self.net, ds_test, nruns, key=epoch).items()})
+            opt_loss = row.get("L2_total_test", np.inf) + \
+                row.get("L2_residual_test", np.inf)
+            if opt_loss < self.best["loss"]:
+                self.best.update(loss=opt_loss, epoch=epoch + 1,
+                                 vars=self.best_vars())
+        if retain_every and (epoch + 1) % retain_every == 0:
+            bank = os.path.join(self.net.folder, "epoch_bank")
+            os.makedirs(bank, exist_ok=True)
+            save_variables(self.best_vars(),
+                           os.path.join(bank, f"G_{epoch + 1}.msgpack"))
+        for k, v in row.items():
+            self.log.setdefault(k, []).append(v)
+        return row
+
+    def checkpoint(self) -> dict:
+        """The carry with the best weights so far (or a template)."""
+        return self.carry() | {"best": self.best["vars"]
+                               if self.best["vars"] is not None
+                               else self.best_template}
+
+    def extra(self) -> dict:
+        return {"best_loss": self.best["loss"] if self.best["epoch"]
+                else 0.0, "best_epoch": self.best["epoch"]}
+
+    def restore(self, saved: dict, extra: dict) -> None:
+        """Resume from a checkpoint's carry and its extra."""
+        self.load(saved)
+        if extra.get("best_epoch", 0) > 0:
+            self.best = {"loss": extra["best_loss"], "vars": saved["best"],
+                         "epoch": extra["best_epoch"]}
+        self.trained()
+
+    def finish(self) -> None:
+        if self.best["vars"] is not None:
+            os.makedirs(self.net.folder, exist_ok=True)
+            save_variables(self.best["vars"],
+                           f"{self.net.folder}/{self.best_file}")
+
+
+class GanTrainer(GenerativeTrainer):
+    """The GAN's replica (twin :575-713): Adam on `gan_optimizers`'
+    schedule, fresh weights for G and then D where the model has none, one
+    `make_gan_batch_step` a batch on the device-resident `data` (X, Y, the
+    mean net's Y), with `gan_draws` from the replica's generator."""
+
+    best_file = "G_opt.msgpack"
+
+    def __init__(self, net: CGANRegression, data: tuple, num_epochs: int,
+                 batch_size: int, learning_rate: float, key: int = 0):
+        super().__init__(net, key, len(data[0]), batch_size)
+        steps = int(np.ceil(self.n / batch_size))
+        txG, txD = gan_optimizers(learning_rate, num_epochs, steps)
+        if net.vars_G is None:
+            init_weights(net.G, self.generator)
+            net._generator_changed()
+        if net.vars_D is None:
+            init_weights(net.D, self.generator)
+        self.opt = {"G": txG.init(named_params(net.G)),
+                    "D": txD.init(named_params(net.D))}
+        self.data = data
+        self.batch_step = make_gan_batch_step(net, txG, txD)
+        self.best_template = params_to_jax(net.G.state_dict())
+
+    def step(self, i: int, idx: torch.Tensor) -> dict:
+        Xd, Yd, Md = self.data
+        x = Xd[idx]
+        return self.batch_step(self.opt, (x, Yd[idx], Md[idx]), i,
+                               gan_draws(self.generator, x,
+                                         self.net.n_latent))
+
+    def trained(self) -> None:
+        self.net._generator_changed()
+        self.net.vars_D = params_to_jax(self.net.D.state_dict())
+
+    def best_vars(self) -> dict:
+        return self.net.vars_G
+
+    def carry(self) -> dict:
+        return {"G": self.net.G.state_dict(), "D": self.net.D.state_dict(),
+                "optG": self.opt["G"], "optD": self.opt["D"]}
+
+    def load(self, saved: dict) -> None:
+        self.net.G.load_state_dict(saved["G"])
+        self.net.D.load_state_dict(saved["D"])
+        self.opt = {"G": saved["optG"], "D": saved["optD"]}
+
+    def describe(self, row: dict) -> str:
+        return (f"D_loss: {row['D_loss']:.3f} G_loss: {row['G_loss']:.3f}"
+                + (f" L2_total: {row['L2_total_test']:.3f}"
+                   if "L2_total_test" in row else ""))
+
+
+def device_data(net, X_train, Y_train) -> tuple:
+    """(X, Y, the mean net's prediction of Y, or zeros) on the model's
+    device."""
     Y_mean = eval_in_batches(net.net_mean, X_train, net.device) \
         if net.regression != "None" else np.zeros_like(Y_train)
+    return tuple(torch.as_tensor(a, device=net.device)
+                 for a in (X_train, Y_train, Y_mean))
 
-    txG, txD = gan_optimizers(learning_rate, num_epochs, steps)
-    if net.vars_G is None:
-        init_weights(net.G, generator)
-        net._generator_changed()
-    if net.vars_D is None:
-        init_weights(net.D, generator)
-    opt = {"G": txG.init(named_params(net.G)),
-           "D": txD.init(named_params(net.D))}
-    Xd, Yd, Md = (torch.as_tensor(a, device=net.device)
-                  for a in (X_train, Y_train, Y_mean))
-    batch_step = make_gan_batch_step(net, txG, txD)
 
-    log: dict = {}
-    best = {"loss": float("inf"), "vars_G": None, "epoch": 0}
-    best_template = params_to_jax(net.G.state_dict())
+class SingleCheckpointer:
+    """`run_epochs`' checkpoint of one replica: `ml.train.TrainCheckpointer`
+    over its carry, shuffle stream, draw stream, log and best epoch."""
 
-    def carry():
-        return {"G": net.G.state_dict(), "D": net.D.state_dict(),
-                "optG": opt["G"], "optD": opt["D"],
-                "best": best["vars_G"] if best["vars_G"] is not None
-                else best_template}
+    def __init__(self, folder: str, every: int, name: str):
+        self.ckpt = TrainCheckpointer(folder, every, name=name)
 
-    ckpt = TrainCheckpointer(net.folder, checkpoint_every,
-                             name="gan_train_ckpt")
-    epoch0 = 0
-    resumed = ckpt.restore(carry(), generator)
-    if resumed is not None:
-        epoch0, saved, log, rng, generator, extra = resumed
-        net.G.load_state_dict(saved["G"])
-        net.D.load_state_dict(saved["D"])
-        opt = {"G": saved["optG"], "D": saved["optD"]}
-        if extra.get("best_epoch", 0) > 0:
-            best = {"loss": extra["best_loss"], "vars_G": saved["best"],
-                    "epoch": extra["best_epoch"]}
-        net._generator_changed()
-        net.vars_D = params_to_jax(net.D.state_dict())
-        if verbose:
-            print(f"resuming GAN training from epoch {epoch0}")
+    def restore(self, trainers) -> int:
+        t, = trainers
+        resumed = self.ckpt.restore(t.checkpoint(), t.generator)
+        if resumed is None:
+            return 0
+        epoch0, saved, t.log, t.rng, t.generator, extra = resumed
+        t.restore(saved, extra)
+        return epoch0
 
+    def maybe_save(self, epoch: int, trainers) -> None:
+        t, = trainers
+        self.ckpt.maybe_save(epoch, t.checkpoint(), t.log, t.rng,
+                             t.generator, extra=t.extra())
+
+    def clear(self) -> None:
+        self.ckpt.clear()
+
+
+def run_epochs(trainers, ds_trains, ds_tests, num_epochs: int, nruns,
+               ckpt, verbose: bool = True, retain_every: int = 0,
+               what: str = "GAN") -> None:
+    """The epoch loop of one or more replicas, resumed from `ckpt` where it
+    holds a checkpoint: the replicas take each batch in turn, in lockstep,
+    each on its own batches and draws, then each ends its epoch; `ckpt`
+    saves every replica after each epoch (where its `every` says), and the
+    best epoch of each is written at the end."""
+    epoch0 = ckpt.restore(trainers)
+    if epoch0 and verbose:
+        print(f"resuming {what} training from epoch {epoch0}")
     t_s = time.time()
     for epoch in range(epoch0, num_epochs):
         t_e = time.time()
-        perm = torch.as_tensor(epoch_permutation(rng, n, batch_size),
-                               device=net.device)
-        rows = []
-        for i, idx in enumerate(perm):
-            x = Xd[idx]
-            rows.append(batch_step(opt, (x, Yd[idx], Md[idx]), i,
-                                   gan_draws(generator, x, net.n_latent)))
-        net._generator_changed()
-        net.vars_D = params_to_jax(net.D.state_dict())
-        row = mean_metrics(rows)
-        if nruns:
-            row.update(evaluate_prediction(net, ds_train, nruns, key=epoch))
-            row.update({f"{k}_test": v for k, v in evaluate_prediction(
-                net, ds_test, nruns, key=epoch).items()})
-            # the best generator by offline loss is kept beside the last
-            # (the reference logs Epoch_opt but keeps only the last)
-            opt_loss = row.get("L2_total_test", np.inf) + \
-                row.get("L2_residual_test", np.inf)
-            if opt_loss < best["loss"]:
-                best.update(loss=opt_loss, epoch=epoch + 1,
-                            vars_G=net.vars_G)
-        if retain_every and (epoch + 1) % retain_every == 0:
-            bank = os.path.join(net.folder, "epoch_bank")
-            os.makedirs(bank, exist_ok=True)
-            save_variables(net.vars_G,
-                           os.path.join(bank, f"G_{epoch + 1}.msgpack"))
-        for k, v in row.items():
-            log.setdefault(k, []).append(v)
-        ckpt.maybe_save(
-            epoch + 1, carry(), log, rng, generator,
-            extra={"best_loss": best["loss"] if best["epoch"] else 0.0,
-                   "best_epoch": best["epoch"]})
+        perms = [t.batches() for t in trainers]
+        rows = [[] for _ in trainers]
+        for i in range(len(perms[0])):
+            for t, perm, r in zip(trainers, perms, rows):
+                r.append(t.step(i, perm[i]))
+        ends = [t.end_epoch(epoch, r, dtr, dte, nruns, retain_every)
+                for t, r, dtr, dte in zip(trainers, rows, ds_trains,
+                                          ds_tests)]
+        ckpt.maybe_save(epoch + 1, trainers)
         if verbose:
             t = time.time()
             eta = (t - t_s) * (num_epochs / (epoch + 1) - 1)
             print(f"[{epoch + 1}/{num_epochs}] [{t - t_e:.2f}/{eta:.2f}] "
-                  f"D_loss: {row['D_loss']:.3f} G_loss: {row['G_loss']:.3f}"
-                  + (f" L2_total: {row.get('L2_total_test', float('nan')):.3f}"
-                     if nruns else ""))
+                  + " | ".join(tr.describe(row)
+                               for tr, row in zip(trainers, ends)))
     ckpt.clear()
-    if best["vars_G"] is not None:
-        os.makedirs(net.folder, exist_ok=True)
-        save_variables(best["vars_G"], f"{net.folder}/G_opt.msgpack")
-    return log
+    for t in trainers:
+        t.finish()
+
+
+def train_CGAN(net: CGANRegression, ds_train, ds_test, X_train, Y_train,
+               num_epochs: int, batch_size: int, learning_rate: float,
+               nruns=5, verbose=True, key: int = 0,
+               checkpoint_every: int = 25, retain_every: int = 0):
+    """The GAN's training loop (twin :575-713), one `GanTrainer`. Every
+    `checkpoint_every` epochs the carry (G and D with their optimizer
+    states, and the best generator so far) is checkpointed to
+    `gan_train_ckpt.npz`, from which a restarted run resumes bit for bit.
+    retain_every > 0 banks the generator every `retain_every` epochs to
+    `epoch_bank/G_<epoch>.msgpack`; the best generator by offline loss goes
+    to `G_opt.msgpack`. Returns the log."""
+    trainer = GanTrainer(net, device_data(net, X_train, Y_train),
+                         num_epochs, batch_size, learning_rate, key)
+    run_epochs([trainer], [ds_train], [ds_test], num_epochs, nruns,
+               SingleCheckpointer(net.folder, checkpoint_every,
+                                  "gan_train_ckpt"),
+               verbose, retain_every)
+    return trainer.log

@@ -30,7 +30,6 @@ evaluation runs the new decoder; the best epoch's decoder is kept in
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -38,19 +37,18 @@ import torch
 from ..device import exact_fp32, exact_fp32_training, resolve_device
 from ..ml.fused_conv import compute_dtype_of
 from ..ml.nets import AndrewCNN, init_weights
-from ..ml.train import Adam, TrainCheckpointer, epoch_permutation, \
-    mean_metrics, piecewise_constant_schedule
+from ..ml.train import Adam, piecewise_constant_schedule
 from ..ml.weights import params_from_jax, params_to_jax, read_msgpack
 from .base import Parameterization, prepare_PV_data, register_model, \
     save_model_args, save_variables
-from .cgan_regression import CGANRegression, evaluate_prediction, \
-    loss_to_dataset
-from .common import bn_apply, eval_in_batches, lev_from_nhwc, \
+from .cgan_regression import CGANRegression, GenerativeTrainer, \
+    SingleCheckpointer, device_data, loss_to_dataset, run_epochs
+from .common import bn_apply, lev_from_nhwc, \
     nhwc_from_lev, offline_variant, online_chain, read_scalers, \
     set_scalers, train_regression
 
 __all__ = ["CVAERegression", "make_vae_loss", "make_vae_step", "train_CVAE",
-           "vae_eps", "vae_optimizer", "vae_params"]
+           "VaeTrainer", "vae_eps", "vae_optimizer", "vae_params"]
 
 
 @register_model
@@ -325,94 +323,64 @@ def vae_eps(generator: torch.Generator, net, x: torch.Tensor):
                        dtype=x.dtype)
 
 
+class VaeTrainer(GenerativeTrainer):
+    """The VAE's replica (twin :292-414): Adam on `vae_optimizer`'s
+    schedule, fresh weights for the encoder and then the decoder where the
+    model has none, one `make_vae_step` a batch on the device-resident
+    `data` (X, Y, the mean net's Y), its eps from the replica's generator
+    (`vae_eps`)."""
+
+    best_file = "decoder_opt.msgpack"
+
+    def __init__(self, net, data: tuple, num_epochs: int, batch_size: int,
+                 learning_rate: float, key: int = 0):
+        super().__init__(net, key, len(data[0]), batch_size)
+        steps = int(np.ceil(self.n / batch_size))
+        tx = vae_optimizer(learning_rate, num_epochs, steps)
+        net._init_vae_variables(self.generator)
+        self.opt_state = tx.init(vae_params(net))
+        self.data = data
+        self.vae_step = make_vae_step(net, tx)
+        self.best_template = params_to_jax(net.decoder.state_dict())
+
+    def step(self, i: int, idx: torch.Tensor) -> dict:
+        Xd, Yd, Md = self.data
+        x = Xd[idx]
+        return self.vae_step(self.opt_state, (x, Yd[idx], Md[idx]),
+                             vae_eps(self.generator, self.net, x))
+
+    def trained(self) -> None:
+        self.net._set_vae_variables()
+
+    def best_vars(self) -> dict:
+        return self.net.vars_dec
+
+    def carry(self) -> dict:
+        return {"modules": {k: m.state_dict()
+                            for k, m in self.net._vae_modules().items()},
+                "opt": self.opt_state}
+
+    def load(self, saved: dict) -> None:
+        for k, m in self.net._vae_modules().items():
+            m.load_state_dict(saved["modules"][k])
+        self.opt_state = saved["opt"]
+
+    def describe(self, row: dict) -> str:
+        return f"MSE: {row['MSE']:.4g} KL: {row['loss_KL']:.4g}"
+
+
 def train_CVAE(net, ds_train, ds_test, X_train, Y_train,
                num_epochs: int, batch_size: int, learning_rate: float,
                nruns=5, verbose=True, key: int = 0,
                checkpoint_every: int = 25):
-    """The VAE's training loop (twin :292-414). numpy's default_rng(key)
-    shuffles; a torch.Generator seeded with `key` on the model's device
-    draws the fresh weights and every batch's eps. Adam(learning_rate),
-    on `vae_optimizer`'s schedule. The carry (the
-    modules, the optimizer's state and the best decoder so far) is
+    """The VAE's training loop (twin :292-414), one `VaeTrainer`. The carry
+    (the modules, the optimizer's state and the best decoder so far) is
     checkpointed to `vae_train_ckpt.npz` every `checkpoint_every` epochs;
     the best decoder by offline loss goes to `decoder_opt.msgpack`. Returns
     the log."""
-    rng = np.random.default_rng(key)
-    generator = torch.Generator(device=net.device).manual_seed(int(key))
-    n = len(X_train)
-    steps = int(np.ceil(n / batch_size))
-
-    Y_mean = eval_in_batches(net.net_mean, X_train, net.device) \
-        if net.regression != "None" else np.zeros_like(Y_train)
-
-    tx = vae_optimizer(learning_rate, num_epochs, steps)
-    net._init_vae_variables(generator)
-    opt_state = tx.init(vae_params(net))
-    Xd, Yd, Md = (torch.as_tensor(a, device=net.device)
-                  for a in (X_train, Y_train, Y_mean))
-    step = make_vae_step(net, tx)
-
-    log: dict = {}
-    best = {"loss": float("inf"), "vars_dec": None, "epoch": 0}
-    best_template = params_to_jax(net.decoder.state_dict())
-
-    def carry():
-        return {"modules": {k: m.state_dict()
-                            for k, m in net._vae_modules().items()},
-                "opt": opt_state,
-                "best": best["vars_dec"] if best["vars_dec"] is not None
-                else best_template}
-
-    ckpt = TrainCheckpointer(net.folder, checkpoint_every,
-                             name="vae_train_ckpt")
-    epoch0 = 0
-    resumed = ckpt.restore(carry(), generator)
-    if resumed is not None:
-        epoch0, saved, log, rng, generator, extra = resumed
-        for k, m in net._vae_modules().items():
-            m.load_state_dict(saved["modules"][k])
-        opt_state = saved["opt"]
-        if extra.get("best_epoch", 0) > 0:
-            best = {"loss": extra["best_loss"], "vars_dec": saved["best"],
-                    "epoch": extra["best_epoch"]}
-        net._set_vae_variables()
-        if verbose:
-            print(f"resuming VAE training from epoch {epoch0}")
-
-    t_s = time.time()
-    for epoch in range(epoch0, num_epochs):
-        t_e = time.time()
-        perm = torch.as_tensor(epoch_permutation(rng, n, batch_size),
-                               device=net.device)
-        rows = []
-        for idx in perm:
-            x = Xd[idx]
-            rows.append(step(opt_state, (x, Yd[idx], Md[idx]),
-                             vae_eps(generator, net, x)))
-        net._set_vae_variables()
-        row = mean_metrics(rows)
-        if nruns:
-            row.update(evaluate_prediction(net, ds_train, nruns, key=epoch))
-            row.update({f"{k}_test": v for k, v in evaluate_prediction(
-                net, ds_test, nruns, key=epoch).items()})
-            opt_loss = row.get("L2_total_test", np.inf) + \
-                row.get("L2_residual_test", np.inf)
-            if opt_loss < best["loss"]:
-                best.update(loss=opt_loss, epoch=epoch + 1,
-                            vars_dec=net.vars_dec)
-        for k, v in row.items():
-            log.setdefault(k, []).append(v)
-        ckpt.maybe_save(
-            epoch + 1, carry(), log, rng, generator,
-            extra={"best_loss": best["loss"] if best["epoch"] else 0.0,
-                   "best_epoch": best["epoch"]})
-        if verbose:
-            t = time.time()
-            eta = (t - t_s) * (num_epochs / (epoch + 1) - 1)
-            print(f"[{epoch + 1}/{num_epochs}] [{t - t_e:.2f}/{eta:.2f}] "
-                  f"MSE: {row['MSE']:.4g} KL: {row['loss_KL']:.4g}")
-    ckpt.clear()
-    if best["vars_dec"] is not None:
-        os.makedirs(net.folder, exist_ok=True)
-        save_variables(best["vars_dec"], f"{net.folder}/decoder_opt.msgpack")
-    return log
+    trainer = VaeTrainer(net, device_data(net, X_train, Y_train),
+                         num_epochs, batch_size, learning_rate, key)
+    run_epochs([trainer], [ds_train], [ds_test], num_epochs, nruns,
+               SingleCheckpointer(net.folder, checkpoint_every,
+                                  "vae_train_ckpt"), verbose, what="VAE")
+    return trainer.log

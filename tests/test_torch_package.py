@@ -59,6 +59,7 @@ def _imported_roots(path):
 def test_no_jax_imports():
     files = sorted((ROOT / "pyqg_generative_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
+    files += sorted((ROOT / "scripts").glob("torch_*.py"))
     assert len(files) > 15
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ("qg/operators", "models/physical", "models/ann_model",
@@ -67,16 +68,20 @@ def test_no_jax_imports():
                    "models/mean_var_model", "models/common", "models/base",
                    "ml/weights", "ml/nets", "ml/train", "qg/spectral",
                    "eval/__init__", "eval/comparison", "eval/metrics",
-                   "eval/forecast", "entry", "utils/checkpoints"):
+                   "eval/forecast", "entry", "utils/checkpoints",
+                   "exp/__init__", "exp/pipeline", "exp/cli", "ml/multifit"):
         assert f"pyqg_generative_torch/{module}.py" in names
+    assert "scripts/torch_online_score.py" in names
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
-def test_entry_points_refuse_cpu_fallback(monkeypatch):
+def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     """device=None means CUDA: without it every entry point raises rather
-    than run on the CPU unasked, the port's bench among them."""
+    than run on the CPU unasked, the port's bench, the pipeline's stages
+    and the CLI among them."""
+    from pyqg_generative_torch.exp import cli, pipeline
     monkeypatch.syspath_prepend(str(ROOT))
     bench_torch = importlib.import_module("bench_torch")
     carry = init_run_carry(QGParams(nx=16), np.zeros((2, 16, 16)), 0,
@@ -121,7 +126,15 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
                                                     sampling_freq=14400.0),
              lambda: coarsegrain_reference_dataset(reference, 8,
                                                    "Operator2"),
-             lambda: entry()]
+             lambda: entry(),
+             lambda: pipeline.run_reference(str(tmp_path), resolutions=(16,),
+                                            n_ens=1, years=0.001),
+             lambda: pipeline.run_forcing_datasets(
+                 str(tmp_path), n_runs=2, Nc=(8,), dns_nx=16, years=0.001),
+             lambda: pipeline.run_parameterized(str(tmp_path), FOLDER),
+             lambda: pipeline.coarsen(np.zeros((2, 16, 16)), "Operator1", 8),
+             lambda: cli.main(["reference", "--nx", "16", "--subfolder",
+                               str(tmp_path)])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -948,3 +961,53 @@ def test_gan_batch_step_on_card_matches_cpu():
     for net in ("D", "G"):
         for k, g in gr[net].items():
             assert _rel_rms(gc[net][k].double().cpu(), g) <= 1e-4, (net, k)
+
+
+@pytest.mark.cuda
+def test_gan_ensemble_replica_equals_fit_on_card(tmp_path):
+    """Two GAN replicas trained in lockstep on the card (8-wide nets at
+    16^2, 2 epochs, the offline evaluation through K1) end bitwise as their
+    own fits with the same keys: every module tensor, G_opt.msgpack and
+    stats.npz."""
+    _need_card()
+    from pyqg_generative_torch.ml.multifit import fit_gan_ensemble
+    rng = np.random.default_rng(7)
+
+    def data(nrun, ntime):
+        q = rng.standard_normal((nrun, ntime, 2, 16, 16)) * 1e-5
+        ds = xr.Dataset()
+        for k, v in (("q", q), ("q_forcing_advection", 2e-6 * q + 1e-12 *
+                                rng.standard_normal(q.shape)),
+                     ("psi", 1e2 * rng.standard_normal(q.shape))):
+            ds[k] = xr.DataArray(v.astype("float32"),
+                                 ("run", "time", "lev", "y", "x"))
+        return ds
+
+    ds_train, ds_test = data(4, 8), data(2, 4)
+
+    def make(folder):
+        m = CGANRegression(nx=16, folder="missing", device="cuda",
+                           hidden_channels=(8,))
+        m.D = nets.DCGANDiscriminator(6, ndf=8, nx=16).cuda()
+        m.folder = str(folder)
+        return m
+
+    fit_kw = dict(num_epochs=2, batch_size=16, nruns=1, verbose=False)
+    singles = []
+    for key in (0, 1):
+        m = make(tmp_path / f"s{key}")
+        m.fit(ds_train, ds_test, key=key, **fit_kw)
+        singles.append(m)
+    replicas = [make(tmp_path / f"r{key}") for key in (0, 1)]
+    before = fused_conv.launches
+    fit_gan_ensemble(replicas, [ds_train] * 2, [ds_test] * 2, keys=(0, 1),
+                     **fit_kw)
+    assert fused_conv.launches > before
+    for m, r in zip(singles, replicas):
+        for name in ("G", "D"):
+            a, b = getattr(m, name).state_dict(), getattr(r, name).state_dict()
+            for k in a:
+                assert torch.equal(a[k], b[k]), (name, k)
+        for f in ("G_opt.msgpack", "stats.npz"):
+            assert (pathlib.Path(m.folder) / f).read_bytes() == \
+                (pathlib.Path(r.folder) / f).read_bytes(), f
