@@ -41,7 +41,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
      bar: the two sum in different orders, and flipped bf16 roundings
      cascade. Its per-layer device times come from torch.profiler, launch
      by launch in chain calls;
-   - K3: exactly;
+   - K3: exactly. K3, its plain version and the packing take about as
+     long as a launch, so each is timed as the median of 7 windows of 200
+     calls, with the spread (min, max) beside it;
 4. drive each path through run_ensemble, whose steady steps replay
    captured CUDA graphs (sim/graph.py): every launch count and the graph's
    step counts set to 0 just before it and read just after; a short
@@ -142,8 +144,35 @@ Phases, in order; any failure raises and the exit code is nonzero:
    run_parameterized of the phase's GAN at 10 x 64^2 (K1 under the graph)
    with compute_online_metrics, run_forecasting and run_forecast_truth,
    train_ANN, and each CLI subcommand once through cli.main.
+13. the rest of orchestration into the ignored build/phase13/ (see
+   orchestration_path):
+   - the port's native loader (g++ builds native/fastloader.cpp) over a
+     store of 4,096 samples of phase 11's training snapshots (256 MiB),
+     200 epochs at batch 64 under a watchdog: every epoch yields every
+     sample once and each batch's rows are the store's; GB/s delivered;
+   - fit_streaming of the AndrewCNN at the committed widths (MSE), its
+     first 3 batches of 8 on the card in float32 against the CPU in
+     float64 (numpy loader in both) to relative 1e-5; then 2 epochs at
+     batch 64 from the native loader through two pinned buffers: ms a
+     batch, the host's wait for the loader, a traced window's busy share,
+     and the device-resident fit at the same batch beside it;
+   - the trained net's offline evaluation, BN-folded, at 512 x 64^2 (one
+     K1 call), its output against K1's plain version on the same Conv_0
+     output, and K1 there by the per-layer check, with its times;
+   - a 1-rank NCCL group: run_ensemble of eddy_gan_64 at 10 x 64^2, AR1,
+     diagnostics on, with ensemble_sharding, bitwise the unsharded run,
+     K1 launched and the graph replaying (one rank gathers nothing, so
+     no collective runs on this path); the cost of drawing the whole
+     ensemble's noise against a quarter's; dryrun_multichip(1) on the
+     card (its GAN steps in float64 and float32 run NCCL collectives, its
+     ensemble launches K1) and dryrun_multichip(4, device="cpu");
+   - measure_throughput of the main path's graphed step beside
+     bench_torch.py's and phase 4's readings; trace() naming K1's kernel;
+     debug_nans over graphed steps (which then run eagerly) and naming the
+     first operator of a step fed one NaN; first_bad_step -1 on a clean
+     200-step GAN run.
 It prints a JSON line of the step profiles, one of phase 9's readings, one
-each of phases 10, 11 and 12, one of kernel measurements, then the
+each of phases 10, 11, 12 and 13, one of kernel measurements, then the
 nvidia-smi line, and last {"ok": true, "device": {...}}. In the kernel
 line, launches is the path's wrapper calls in phase 4's graphed runs, and
 graph_replays the replayed steps there, each of which launches the kernel
@@ -155,15 +184,20 @@ reading. Each row's "phase10" holds the kernel at phase 10's shapes (K1 and
 K2 at the offline batch, K1-bf16 at entry()'s one member, K3 at the probe's
 shape): its batch, its launches in phase 10's runs, max|kernel - plain|,
 its ms, its plain version's and the library's, and its bound. K1's and
-K2's rows also hold "phase11" and "phase12", their launches there.
+K2's rows also hold "phase11" and "phase12", their launches there, and
+K1's "phase13": its launches on phase 13's driven parts (the offline
+evaluation, the sharded ensemble, the utilities), and at the offline batch
+its errors, ms, plain, library and bound.
 
 Run from the repository root: python3 chip_smoke.py
 Where CUDA is not available it exits with code 1 and prints no result.
 """
+import concurrent.futures
 import json
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -256,7 +290,22 @@ REDUCED_12 = ("12 forcing runs of 1,000 DNS steps at 256^2, where the "
               "reference with 2 members), where they run 20 years; "
               "forecasts of 2 ICs and 5 days, where they run 15 and 90; "
               "widths, grids, batch 64 and M = 1000 as published")
+# phase 13: the rest of orchestration into PHASE13_DIR. The loader's store
+# holds STORE_SAMPLES samples of phase 11's training snapshots (q and S
+# normalised, NHWC, 2 levels each: 64 KiB a sample, and its index), 256 MiB;
+# the stress runs STRESS_EPOCHS epochs at batch TRAIN_BATCH under a
+# STRESS_LIMIT s watchdog; fit_streaming trains the AndrewCNN at the
+# committed widths STREAM_EPOCHS epochs at batch TRAIN_BATCH (a window of
+# TRACED_STEPS batches traced), held against the CPU in float64 over
+# CHECK_BATCHES batches of CARD_CPU_BATCH; the device-resident fit runs over
+# FIT_SAMPLES samples; the sharded GAN ensemble MESH_STEPS steps; NAN_STEPS
+# graphed steps under debug_nans
+PHASE13_DIR = ROOT / "build" / "phase13"
+STORE_SAMPLES, STRESS_EPOCHS, STRESS_LIMIT = 4096, 200, 120.0
+STREAM_EPOCHS, FIT_SAMPLES, CHECK_BATCHES = 2, 1024, 3
+MESH_STEPS, MESH_SNAP, NAN_STEPS = 60, 30, 8
 COUNTS = ("launches", "launches_bf16", "launches_packed", "launches_probe")
+K1_KERNEL = "conv_fma_kernel"  # in the name of K1's float32 kernel
 LIBRARIES = ("fused_conv", "packed_chain", "bitcast_probe")
 # peak rates and memory rate of one H100 SXM (NVIDIA data sheet, 700 W):
 # float32 outside the tensor cores (K1 and K2 in float32), dense bf16 on the
@@ -283,6 +332,26 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def median_ms(fn, calls=200, windows=7):
+    """(median, min, max) over `windows` windows of fn()'s mean ms by CUDA
+    events over `calls` calls each: a kernel that takes about as long as
+    its launch, timed without one window's noise deciding."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end) / calls)
+    ms.sort()
+    return ms[len(ms) // 2], ms[0], ms[-1]
 
 
 def host_ms(fn, iters=50):
@@ -379,22 +448,29 @@ def check_k1(fused_conv, folded, B, H, seed, W=None):
     """K1 in float32 against its plain version on Conv_0's output of a
     random input; returns (packed, K1 input, max |K1 - plain|)."""
     packed, x = chain_input(fused_conv, folded, B, H, seed, W=W)
-    out = fused_conv.fused_cnn_forward(x, packed)
+    return packed, x, k1_vs_plain(fused_conv, packed, x, f"B={B}, {H}^2")
+
+
+def k1_vs_plain(fused_conv, packed, x, what, out=None):
+    """K1's output on x (`out`, else a launch here) against its plain
+    version, within rtol 2e-4 / atol 2e-5 max|plain|; returns max|err|."""
+    if out is None:
+        out = fused_conv.fused_cnn_forward(x, packed)
     torch.cuda.synchronize()
     ref = fused_conv.fused_cnn_forward_plain(x, packed)
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
     ref64 = float64_chain(x, packed)
     ok = torch.allclose(out, ref, rtol=2e-4, atol=2e-5 * scale)
-    log(f"K1 vs plain at B={B}, {H}^2: max|err| {err:.3e}, max|ref| "
+    log(f"K1 vs plain at {what}: max|err| {err:.3e}, max|ref| "
         f"{scale:.3e}, within rtol 2e-4 / atol 2e-5*max: {ok}; against "
         f"float64 of the same weights: K1 "
         f"{float((out.double() - ref64).abs().max()):.3e}, plain "
         f"{float((ref.double() - ref64).abs().max()):.3e}")
     if not ok:
         raise AssertionError(f"K1 disagrees with its plain version at "
-                             f"B={B}, {H}^2")
-    return packed, x, err
+                             f"{what}")
+    return err
 
 
 def check_layers(fused_conv, name, packed, x, what):
@@ -673,12 +749,18 @@ def check_and_time_kernels(fused_conv, smi):
     log(f"K3 vs plain and vs torch.stack(...).view(int32): exact; probe "
         f"words {int(words[0, 0]):#010x} {int(words[1, 0]):#010x} for rows "
         "(1, 2), (3, 4)")
+    # K3 takes about as long as a launch: each time is the median of 7
+    # windows of 200 calls, with its spread (min, max)
+    k3 = {k: median_ms(fn) for k, fn in (
+        ("ms", lambda: fused_conv.bitcast_pack_words(probe)),
+        ("plain_ms", lambda: fused_conv.bitcast_pack_words_plain(probe)),
+        ("library_ms", lambda: library_pack(probe)))}
     rows["k3"] = kernel_row(
-        "k3_pack_bf16_pairs", "bitcast_probe.cu", 308, 0.0,
-        cuda_ms(lambda: fused_conv.bitcast_pack_words(probe)),
-        cuda_ms(lambda: fused_conv.bitcast_pack_words_plain(probe)),
-        0.0, 2 * probe.numel() + 4 * probe.numel() // 2, PEAK_BF16_FLOPS,
-        cuda_ms(lambda: library_pack(probe)))
+        "k3_pack_bf16_pairs", "bitcast_probe.cu", 308, 0.0, k3["ms"][0],
+        k3["plain_ms"][0], 0.0, 2 * probe.numel() + 4 * probe.numel() // 2,
+        PEAK_BF16_FLOPS, k3["library_ms"][0])
+    for k, (_, lo, hi) in k3.items():
+        rows["k3"][k.replace("ms", "ms_spread")] = [lo, hi]
 
     calls = {"k1": lambda: fused_conv.fused_cnn_forward(*k1_args),
              "k1_bf16": lambda: fused_conv.fused_cnn_forward(*k1_bf16_args),
@@ -2090,7 +2172,8 @@ def training_step_readings(ds_train, smi):
 def training_path(fused_conv, graph, rows, smi):
     """Phase 11: the training slice on the card (see the docstring), each
     part with the counts set to 0 just before it and read just after; K1's
-    and K2's launches over the phase go into their kernel rows."""
+    and K2's launches over the phase go into their kernel rows. Returns
+    (readings, the training snapshots)."""
     t0 = time.perf_counter()
     ds_train, ds_test, data = training_data(fused_conv, graph, smi)
     closures, gan = train_every_closure(fused_conv, graph, ds_train,
@@ -2113,7 +2196,7 @@ def training_path(fused_conv, graph, rows, smi):
     rows["k2"]["phase11"] = {"launches": launches["launches_packed"]}
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t0
-    return out
+    return out, ds_train
 
 
 # --------------------------------------------------------------------------
@@ -2387,9 +2470,495 @@ def pipeline_path(fused_conv, graph, rows, smi):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 13: the rest of orchestration
+# --------------------------------------------------------------------------
+
+def traced_busy(fn):
+    """(the card's busy share, kernels) of fn() traced by torch.profiler:
+    the union of the kernel intervals over their span."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):  # a window whose kernels the profiler missed
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    if not kernels:
+        raise AssertionError("the profiler saw no device kernel")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    return _union_us(spans) / (spans[-1][1] - spans[0][0]), len(kernels)
+
+
+class TimedLoader:
+    """A FastLoader whose epochs time the host's wait for each batch (the
+    wait for a free output buffer, `before_fill`, separately); with `limit`,
+    an epoch stops after that many batches."""
+
+    def __init__(self, loader, limit=None):
+        self.loader, self.limit = loader, limit
+        self.meta = loader.meta
+        self.batch_size = loader.batch_size
+        self.sample_floats = loader.sample_floats
+        self.wait = self.fill_wait = 0.0
+        self.batches = 0
+
+    def epoch(self, seed=0, out=None, before_fill=None):
+        def fill(k):
+            t = time.perf_counter()
+            before_fill(k)
+            self.fill_wait += time.perf_counter() - t
+
+        it = self.loader.epoch(seed, out, fill if before_fill else None)
+        for _ in range(self.limit or 1 << 62):
+            t = time.perf_counter()
+            batch = next(it, None)
+            self.wait += time.perf_counter() - t
+            if batch is None:
+                return
+            self.batches += 1
+            yield batch
+
+
+def sample_store(ds_train):
+    """Phase 13's store in PHASE13_DIR: STORE_SAMPLES samples, sample i
+    phase 11's training snapshot i mod 640 (q and S normalised, NHWC, 2
+    levels each) and its index. Returns (folder, X, Y)."""
+    from pyqg_generative_torch.models import base
+    from pyqg_generative_torch.utils.native import write_sample_store
+    X, Y = base.prepare_PV_data(ds_train, ds_train)[:2]
+    take = np.arange(STORE_SAMPLES) % len(X)
+    folder = str(PHASE13_DIR / "store")
+    write_sample_store(folder, {
+        "x": X[take], "y": Y[take],
+        "index": np.arange(STORE_SAMPLES, dtype=np.float32)[:, None]})
+    return folder, X[take], Y[take]
+
+
+def loader_stress(folder):
+    """STRESS_EPOCHS epochs of the port's native loader at batch
+    TRAIN_BATCH into a ring of two buffers, in a thread under a
+    STRESS_LIMIT s watchdog: every epoch yields every sample once, each
+    batch's rows are the store's (whole rows in the first epoch, every 97th
+    float and the last after it). Returns GB/s delivered and the rest."""
+    from pyqg_generative_torch.utils.native import FastLoader
+    fl = FastLoader(folder, batch_size=TRAIN_BATCH)
+    if not fl.native:
+        raise AssertionError("phase 13: the loader is not native")
+    n, sf = fl.n_samples, fl.sample_floats
+    store = np.memmap(f"{folder}/data.bin", np.float32, "r", shape=(n, sf))
+    tag = fl.meta["fields"]["index"]["offset"]
+    ring = [np.empty((TRAIN_BATCH, sf), np.float32) for _ in range(2)]
+    cols = np.r_[0:sf:97, sf - 1]
+    box = {}
+
+    def run():
+        try:
+            t0 = time.perf_counter()
+            for e in range(STRESS_EPOCHS):
+                seen = np.zeros(n, np.int64)
+                for b, _ in enumerate(fl.epoch(seed=e, out=ring)):
+                    flat = ring[b % 2]
+                    ids = flat[:, tag].astype(np.int64)
+                    np.add.at(seen, ids, 1)
+                    ref = store[ids] if e == 0 else \
+                        store[ids[:, None], cols[None, :]]
+                    got = flat if e == 0 else flat[:, cols]
+                    if not np.array_equal(got, ref):
+                        raise AssertionError(f"epoch {e}, batch {b}: rows "
+                                             "differ from the store")
+                if not (seen == 1).all():
+                    raise AssertionError(f"epoch {e}: {int((seen == 0).sum())}"
+                                         " samples missing")
+            box["seconds"] = time.perf_counter() - t0
+        except BaseException as err:
+            box["error"] = err
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(STRESS_LIMIT)
+    if t.is_alive():
+        raise AssertionError(f"phase 13: the loader's stress run outlasted "
+                             f"its {STRESS_LIMIT} s watchdog")
+    if "error" in box:
+        raise box["error"]
+    fl.close()
+    gb = STRESS_EPOCHS * n * sf * 4 / 1e9
+    return {"epochs": STRESS_EPOCHS, "batch": TRAIN_BATCH,
+            "samples": n, "sample_kib": sf * 4 / 1024,
+            "every_epoch_complete": True, "seconds": box["seconds"],
+            "gb_per_s": gb / box["seconds"]}
+
+
+def _stream_net(dev, dtype=torch.float32):
+    """The AndrewCNN at the committed widths (2 -> 128/64/32x5 -> 2), its
+    weights drawn on the CPU from seed 0 (the twin's initializers)."""
+    from pyqg_generative_torch.ml.nets import AndrewCNN, init_weights
+    net = AndrewCNN(2, 2)
+    init_weights(net, torch.Generator().manual_seed(0))
+    return net.to(dev, dtype)
+
+
+def streaming_vs_cpu(X, Y):
+    """fit_streaming's first CHECK_BATCHES batches of CARD_CPU_BATCH on the
+    card in float32 against the CPU in float64, both reading the numpy
+    loader of one small store: each batch's loss to relative 1e-5."""
+    from pyqg_generative_torch.device import exact_fp32_training
+    from pyqg_generative_torch.ml import train as T
+    from pyqg_generative_torch.models.common import mse_loss_fn
+    from pyqg_generative_torch.utils.native import FastLoader, \
+        write_sample_store
+    n = CHECK_BATCHES * CARD_CPU_BATCH
+    folder = str(PHASE13_DIR / "check_store")
+    write_sample_store(folder, {"x": X[:n], "y": Y[:n]})
+    losses = {}
+    for name, (dev, dtype) in {"card": (DEV, torch.float32),
+                               "cpu64": ("cpu", torch.float64)}.items():
+        net = _stream_net(dev, dtype)
+        tx = T.multistep_adam(1e-3, 1, CHECK_BATCHES)
+        seen = []
+
+        def loss_fn(batch, train, net=net, seen=seen):
+            loss, metrics = mse_loss_fn(net)(batch, train)
+            seen.append(loss.detach())
+            return loss, metrics
+
+        with exact_fp32_training():
+            T.fit_streaming(loss_fn, T.TrainingState(
+                net, tx.init(T.named_params(net))), tx,
+                FastLoader(folder, batch_size=CARD_CPU_BATCH,
+                           force_python=True), ("x", "y"), 1, verbose=False)
+        losses[name] = [float(v) for v in seen]
+    rel = [abs(a / b - 1) for a, b in zip(losses["card"], losses["cpu64"])]
+    if len(rel) != CHECK_BATCHES or not max(rel) <= 1e-5:
+        raise AssertionError(f"phase 13 fit_streaming card vs CPU: {losses}")
+    return {"batches": CHECK_BATCHES, "batch": CARD_CPU_BATCH,
+            "losses_card": losses["card"], "losses_cpu64": losses["cpu64"],
+            "loss_rel_err": rel}
+
+
+def streaming_on_card(folder, X, Y, smi):
+    """fit_streaming of the committed-width AndrewCNN (MSE) on the store,
+    STREAM_EPOCHS epochs at batch TRAIN_BATCH from the native loader into
+    two pinned buffers; a window of TRACED_STEPS batches traced; the same
+    net's device-resident `fit` over FIT_SAMPLES samples at the same batch.
+    Returns (the trained net, readings)."""
+    from pyqg_generative_torch.device import exact_fp32_training
+    from pyqg_generative_torch.ml import train as T
+    from pyqg_generative_torch.models.common import mse_loss_fn
+    from pyqg_generative_torch.utils.native import FastLoader
+    net = _stream_net(DEV)
+    steps = STORE_SAMPLES // TRAIN_BATCH
+    tx = T.multistep_adam(1e-3, STREAM_EPOCHS, steps)
+    state = T.TrainingState(net, tx.init(T.named_params(net)))
+    loader = TimedLoader(FastLoader(folder, batch_size=TRAIN_BATCH))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with exact_fp32_training():
+        state, log_ = T.fit_streaming(mse_loss_fn(net), state, tx, loader,
+                                      ("x", "y"), STREAM_EPOCHS,
+                                      verbose=False)
+    wall = time.perf_counter() - t0
+    if loader.batches != STREAM_EPOCHS * steps or not np.isfinite(
+            log_["loss"]).all():
+        raise AssertionError(f"phase 13 fit_streaming: {loader.batches} "
+                             f"batches, log {log_}")
+    out = {"epochs": STREAM_EPOCHS, "batch": TRAIN_BATCH,
+           "batches": loader.batches, "loss": log_["loss"],
+           "ms_per_batch": wall / loader.batches * 1e3,
+           "loader_wait_ms_per_batch": loader.wait / loader.batches * 1e3,
+           "buffer_wait_ms_per_batch":
+           loader.fill_wait / loader.batches * 1e3}
+
+    # a traced window: fit_streaming over TRACED_STEPS batches
+    probe = _stream_net(DEV)
+    ptx = T.multistep_adam(1e-3, 1, steps)
+    pstate = T.TrainingState(probe, ptx.init(T.named_params(probe)))
+
+    def window():
+        with exact_fp32_training():
+            T.fit_streaming(mse_loss_fn(probe), pstate, ptx, TimedLoader(
+                FastLoader(folder, batch_size=TRAIN_BATCH),
+                limit=TRACED_STEPS), ("x", "y"), 1, verbose=False)
+    busy, kernels = traced_busy(window)
+    out["traced_busy_share"] = busy
+    out["traced_kernels_per_batch"] = kernels / TRACED_STEPS
+
+    # the device-resident fit at the same batch
+    resident = _stream_net(DEV)
+    rtx = T.multistep_adam(1e-3, 1, FIT_SAMPLES // TRAIN_BATCH)
+    rstate = T.TrainingState(resident, rtx.init(T.named_params(resident)))
+    data = tuple(torch.as_tensor(a[:FIT_SAMPLES], device=DEV)
+                 for a in (X, Y))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with exact_fp32_training():
+        T.fit(mse_loss_fn(resident), rstate, rtx, data, (), 1, TRAIN_BATCH,
+              verbose=False)
+    out["resident_fit_ms_per_batch"] = (time.perf_counter() - t0) / (
+        FIT_SAMPLES // TRAIN_BATCH) * 1e3
+    log(f"phase 13, fit_streaming: {loader.batches} batches of "
+        f"{TRAIN_BATCH} x {NX}^2 from the native loader, "
+        f"{out['ms_per_batch']:.3f} ms a batch (device-resident fit "
+        f"{out['resident_fit_ms_per_batch']:.3f}); the host waits "
+        f"{out['loader_wait_ms_per_batch']:.3f} ms a batch for the loader "
+        f"({out['buffer_wait_ms_per_batch']:.3f} of it for a free buffer); "
+        f"traced: the card busy {100 * out['traced_busy_share']:.1f}%, "
+        f"{out['traced_kernels_per_batch']:.0f} kernels a batch; losses "
+        f"{log_['loss']} on {smi}")
+    return net, out
+
+
+def trained_net_on_k1(fused_conv, graph, net, X, rows):
+    """The fit_streaming net's offline evaluation: BN-folded, on the store's
+    first 512 inputs at once (the offline batch at 64^2,
+    models/common.py::OFFLINE_PIXELS), Conv_0 in PyTorch and
+    Conv_1..Conv_7 through K1; that output against K1's plain version on
+    the same Conv_0 output, then K1 there by the per-layer check, and its
+    times there. Returns (readings, K1's launches in the evaluation)."""
+    from pyqg_generative_torch.ml.nets import fold_batchnorm
+    from pyqg_generative_torch.ml.weights import params_to_jax
+    folded = fold_batchnorm(params_to_jax(net.state_dict()))
+    apply = fused_conv.make_online_cnn(folded, torch.float32, device=DEV)
+    x = torch.as_tensor(X[:512], device=DEV)
+    set_counts(fused_conv, graph)
+    with torch.no_grad():
+        y = apply(x)
+    torch.cuda.synchronize()
+    launches = read_counts(fused_conv, graph)[0]["launches"]
+    if launches != 1 or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"phase 13 offline evaluation: {launches} K1 "
+                             "launches")
+    packed = apply.packed
+    with torch.no_grad():
+        x = apply.first_layer(x)
+    what = f"the fit_streaming net's offline batch, 512 x {NX}^2"
+    err = k1_vs_plain(fused_conv, packed, x, what, out=y)
+    worst = check_layers(fused_conv, "K1", packed, x, what)
+    out = {"batch": 512, "max_abs_err": err, "layer_max_err": worst,
+           **f32_kernel_times(fused_conv, "K1", packed, x)}
+    rows["k1"]["phase13"] = dict(out)
+    return out, launches
+
+
+def mesh_on_card(fused_conv, graph, smi):
+    """A 1-rank NCCL group: run_ensemble of eddy_gan_64 at MEMBERS x NX^2,
+    AR1, diagnostics on, with ensemble_sharding, bitwise the unsharded run,
+    K1 launched and the graph replaying; the cost of drawing the whole
+    ensemble's noise against one member's block; then dryrun_multichip(1)
+    on the card and dryrun_multichip(4) on gloo ranks of the CPU, at
+    once."""
+    import torch.distributed as dist
+
+    from pyqg_generative_torch.entry import dryrun_multichip
+    from pyqg_generative_torch.models import load_model
+    from pyqg_generative_torch.parallel import ensemble_sharding, make_mesh
+    from pyqg_generative_torch.parallel.spawn import free_port
+    from pyqg_generative_torch.qg.params import QGParams
+    from pyqg_generative_torch.sim import run_ensemble
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        p = QGParams(nx=NX, dt=14400.0, tavestart=0.0, precision="single",
+                     tmax=MESH_STEPS * 14400.0)
+        closure = {"self": load_model(FOLDER, device=DEV),
+                   "sampling": "AR1", "nsteps": 1}
+        kw = dict(n_ens=MEMBERS, sampling_freq=MESH_SNAP * p.dt,
+                  device=DEV)
+        set_counts(fused_conv, graph)
+        t0 = time.perf_counter()
+        ds = run_ensemble(p, closure, sharding=ensemble_sharding(
+            make_mesh()), **kw)
+        seconds = time.perf_counter() - t0
+        counts, steps = read_counts(fused_conv, graph)
+        ref = run_ensemble(p, closure, **kw)
+    finally:
+        dist.destroy_process_group()
+    if counts["launches"] != steps["eager_steps"] + steps["captured_steps"] \
+            or steps["replayed_steps"] < 1 or not same_dataset(ds, ref):
+        raise AssertionError(f"phase 13 sharded ensemble: counts {counts}, "
+                             f"graph {steps}, bitwise "
+                             f"{same_dataset(ds, ref)}")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    shape = (MEMBERS, NX, NX, 2)
+    draw_us = {k: 1e3 * median_ms(lambda s=s: torch.randn(
+        s, generator=gen, device=DEV))[0] for k, s in (
+        ("whole_ensemble", shape), ("quarter", (MEMBERS // 4,) + shape[1:]))}
+    out = {"members": MEMBERS, "steps": MESH_STEPS, "bitwise": True,
+           "launches": counts, "graph_counts": steps, "seconds": seconds,
+           "noise_draw_us": draw_us}
+
+    def dryrun(n, device):
+        t0 = time.perf_counter()
+        r = dryrun_multichip(n, device=device)
+        return {"seconds": time.perf_counter() - t0, "ok": True,
+                "k1_launches": r[0]["ensemble_gan"]["k1_launches"],
+                "gan_step": r[0]["gan_step"],
+                "gan_step_f32": r[0]["gan_step_f32"],
+                "ensemble_gan_err": r[0]["ensemble_gan"]["err"],
+                "imported_jax": r[0]["imported_jax"]}
+
+    # the card's rank and the CPU's four run at once, each in processes
+    # of its own
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = {"1_cuda": pool.submit(dryrun, 1, None),
+                "4_cpu": pool.submit(dryrun, 4, "cpu")}
+        dry = {k: job.result() for k, job in jobs.items()}
+    if dry["1_cuda"]["k1_launches"] < 1:
+        raise AssertionError("phase 13: the card's dry run launched no K1")
+    out["dryrun"] = dry
+    log(f"phase 13, 1-rank NCCL sharded ensemble of eddy_gan_64, {MEMBERS} x "
+        f"{NX}^2, {MESH_STEPS} steps: bitwise the unsharded run, launches "
+        f"{counts}, graph {steps}; noise draw of the whole ensemble "
+        f"{draw_us['whole_ensemble']:.2f} us against a quarter's "
+        f"{draw_us['quarter']:.2f} us; dry runs: " + ", ".join(
+            f"{k} {v['seconds']:.1f} s" for k, v in dry.items())
+        + f" on {smi}")
+    return out
+
+
+def utilities_on_card(fused_conv, graph, phase4_rate, smi):
+    """measure_throughput of the main path's graphed step beside
+    bench_torch.py's reading; trace() names K1's kernel; debug_nans passes a
+    clean eager step (and a GraphedStep steps eagerly under it) and names
+    the first operator of a step fed one NaN; first_bad_step gives -1 on a
+    clean 200-step GAN run. Returns (readings, K1's launches)."""
+    import contextlib
+    import io
+
+    import bench_torch
+    from pyqg_generative_torch.models import load_model
+    from pyqg_generative_torch.qg import core
+    from pyqg_generative_torch.qg.params import QGParams
+    from pyqg_generative_torch.sim import init_run_carry, make_online_step
+    from pyqg_generative_torch.utils.debugging import debug_nans, \
+        first_bad_step
+    from pyqg_generative_torch.utils.profiling import measure_throughput, \
+        trace
+    p = QGParams(nx=NX, dt=14400.0, tavestart=0.0, precision="single")
+    model = load_model(FOLDER, device=DEV)
+
+    def carry():
+        return init_run_carry(p, np.stack([core.default_initial_q(
+            p, rng=np.random.default_rng(j)).numpy()
+            for j in range(MEMBERS)]), 0, model, device=DEV)
+
+    set_counts(fused_conv, graph)
+    thr = measure_throughput(graph.GraphedStep(p, model, "AR1", 1), carry(),
+                             n_steps=STEPS, warmup=3 * p.taveints)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_torch.main([])
+    bench = json.loads(buf.getvalue().strip().splitlines()[0])
+    out = {"measure_throughput": {
+        **thr, "member_steps_per_s": MEMBERS * thr["steps_per_s"]},
+        "bench_torch_member_steps_per_s": bench["value"],
+        "phase4_member_steps_per_s": phase4_rate}
+
+    step = make_online_step(p, model, "AR1", 1)
+    c = carry()
+    logdir = PHASE13_DIR / "trace"
+    with trace(str(logdir)):
+        for _ in range(3):
+            c = step(c)
+        torch.cuda.synchronize()
+    names = {e.get("name", "") for e in json.loads(
+        (logdir / "trace.json").read_text())["traceEvents"]}
+    k1_names = sorted(n for n in names if K1_KERNEL in n)
+    if not k1_names:
+        raise AssertionError("phase 13: the trace names no K1 kernel")
+    out["trace_k1_kernels"] = k1_names[:3]
+
+    before = read_counts(fused_conv, graph)[1]
+    gstep, c = graph.GraphedStep(p, model, "AR1", 1), carry()
+    with debug_nans():
+        for _ in range(NAN_STEPS):
+            c = gstep(c)
+    after = read_counts(fused_conv, graph)[1]
+    if after["captured_steps"] != before["captured_steps"] or \
+            after["replayed_steps"] != before["replayed_steps"]:
+        raise AssertionError(f"phase 13: a graph under debug_nans {after}")
+    bad = carry()
+    bad[0].qh[3, 1, 5, 7] = float("nan")
+    try:
+        with debug_nans():
+            step(bad)
+        raise AssertionError("phase 13: debug_nans missed a NaN")
+    except FloatingPointError as err:
+        out["debug_nans_names"] = str(err)
+    t0 = time.perf_counter()
+    out["first_bad_step_clean"] = first_bad_step(
+        p, core.default_initial_q(p, rng=np.random.default_rng(0)),
+        max_steps=200, chunk=100,
+        parameterization={"self": model, "sampling": "AR1", "nsteps": 1},
+        device=DEV)
+    out["first_bad_step_seconds"] = time.perf_counter() - t0
+    if out["first_bad_step_clean"] != -1:
+        raise AssertionError(f"phase 13 first_bad_step: {out}")
+    counts = read_counts(fused_conv, graph)[0]
+    log(f"phase 13, utilities: measure_throughput of the graphed main "
+        f"path {out['measure_throughput']['member_steps_per_s']:.1f} "
+        f"member-steps/s, bench_torch.py {bench['value']:.1f}, phase 4 "
+        f"{phase4_rate:.1f}; trace names {k1_names[:1]}; debug_nans: "
+        f"{out['debug_nans_names']}; first_bad_step -1 in "
+        f"{out['first_bad_step_seconds']:.2f} s on {smi}")
+    return out, counts["launches"]
+
+
+def orchestration_path(fused_conv, graph, rows, ds_train, phase4_rate, smi):
+    """Phase 13 (see the module's docstring) into PHASE13_DIR: each driven
+    part with the counts set to 0 just before it and read just after; K1's
+    launches on those parts go into its row's "phase13"."""
+    import shutil
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        result = fn()
+        parts[name] = time.perf_counter() - t
+        return result
+
+    shutil.rmtree(PHASE13_DIR, ignore_errors=True)
+    PHASE13_DIR.mkdir(parents=True)
+    folder, X, Y = part("store", lambda: sample_store(ds_train))
+    out = {"store": {"samples": STORE_SAMPLES,
+                     "mib": (PHASE13_DIR / "store" / "data.bin").stat()
+                     .st_size / 2 ** 20}}
+    out["loader_stress"] = part("loader_stress",
+                                lambda: loader_stress(folder))
+    log(f"phase 13, loader stress: {STRESS_EPOCHS} epochs of "
+        f"{STORE_SAMPLES} samples at batch {TRAIN_BATCH}, each complete: "
+        f"{out['loader_stress']['gb_per_s']:.2f} GB/s delivered "
+        f"({out['loader_stress']['seconds']:.2f} s)")
+    out["fit_streaming_vs_cpu"] = part("fit_streaming_vs_cpu",
+                                       lambda: streaming_vs_cpu(X, Y))
+    net, out["fit_streaming"] = part(
+        "fit_streaming", lambda: streaming_on_card(folder, X, Y, smi))
+    out["k1_trained_net"], launches = part(
+        "k1_trained_net", lambda: trained_net_on_k1(fused_conv, graph, net,
+                                                    X, rows))
+    out["mesh"] = part("mesh", lambda: mesh_on_card(fused_conv, graph, smi))
+    launches += out["mesh"]["launches"]["launches"]
+    out["utilities"], n = part("utilities", lambda: utilities_on_card(
+        fused_conv, graph, phase4_rate, smi))
+    launches += n
+    out["part_seconds"] = parts
+    if not out["mesh"]["launches"]["launches"]:
+        raise AssertionError("phase 13 launched no K1 on the mesh path")
+    rows["k1"]["phase13"]["launches"] = launches
+    out["launches_k1"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _group(name: str) -> str:
     low = name.lower()
-    if "conv_fma_kernel" in name:
+    if K1_KERNEL in name:
         return "K1 (Conv_1..Conv_7)"
     if "conv_mma_kernel" in name:
         return "K1-bf16 (Conv_1..Conv_7)"
@@ -2589,16 +3158,21 @@ def main():
     phase10 = scoring_path(fused_conv, graph, rows, smi)
     log(f"phase 10 took {phase10['seconds']:.1f} s")
     # 11. training
-    phase11 = training_path(fused_conv, graph, rows, smi)
+    phase11, ds_train = training_path(fused_conv, graph, rows, smi)
     log(f"phase 11 took {phase11['seconds']:.1f} s")
     # 12. the experiment pipeline
     phase12 = pipeline_path(fused_conv, graph, rows, smi)
     log(f"phase 12 took {phase12['seconds']:.1f} s")
+    # 13. the rest of orchestration
+    phase13 = orchestration_path(fused_conv, graph, rows, ds_train,
+                                 profiles["gan"]["member_steps_per_s"], smi)
+    log(f"phase 13 took {phase13['seconds']:.1f} s")
     print(json.dumps({"step_profile": profiles}))
     print(json.dumps({"every_closure": zoo_readings, "card": smi}))
     print(json.dumps({"scoring_path": phase10, "card": smi}))
     print(json.dumps({"training": phase11, "card": smi}))
     print(json.dumps({"pipeline": phase12, "card": smi}))
+    print(json.dumps({"phase13": phase13, "card": smi}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,6 @@ import os
 
 import numpy as np
 import torch
-from scipy.stats import wasserstein_distance
 
 from ..device import resolve_device
 from ..qg import operators as op
@@ -136,6 +135,9 @@ def diagnostic_differences(ds1: xr.Dataset, ds2: xr.Dataset, T: int = 128):
     """ds2 is the target (used for normalization). Returns
     (normalized_differences, differences, scales)
     (reference comparison_tools.py:116-195)."""
+    # imported here: scipy.stats takes seconds to import, which every
+    # process that imports the models (a mesh's ranks among them) would pay
+    from scipy.stats import wasserstein_distance
     differences, scales = {}, {}
     ts = slice(-T, None)
     for label in ("q", "u", "v", "KE", "Ens"):

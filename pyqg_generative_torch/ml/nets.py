@@ -214,7 +214,11 @@ class AndrewCNN(nn.Module):
         cins = [n_in] + chans[:-1]
         self.n_layers = len(list(zip(chans, kernels)))
         for i, (ci, co, k) in enumerate(zip(cins, chans, kernels)):
-            self.add_module(f"Conv_{i}", nn.Conv2d(ci, co, k, bias=bias))
+            # circular_conv2d as a module: torch pads (k-1)//2 on each
+            # side circularly, then convolves valid
+            self.add_module(f"Conv_{i}", nn.Conv2d(
+                ci, co, k, bias=bias, padding=(k - 1) // 2,
+                padding_mode="circular"))
             if batch_norm and i < self.n_layers - 1:
                 self.add_module(f"BatchNorm_{i}",
                                 BatchNorm(co))
@@ -228,8 +232,7 @@ class AndrewCNN(nn.Module):
         x = x.permute(0, 3, 1, 2)
         last = self.n_layers - 1
         for i in range(self.n_layers):
-            conv = getattr(self, f"Conv_{i}")
-            x = circular_conv2d(x, conv.weight, conv.bias)
+            x = getattr(self, f"Conv_{i}")(x)
             if i < last:
                 x = F.relu(x) if self.relu == "ReLU" \
                     else F.leaky_relu(x, 0.2)

@@ -1,5 +1,6 @@
 """The training machinery: Adam on the twin's schedule, shuffled epochs on
-device-resident data, mid-run checkpoints, the loss log.
+device-resident data or streamed from the native loader, mid-run
+checkpoints, the loss log.
 
 Twin of `pyqg_generative_tpu/ml/train.py`. The twin's epoch is one
 `lax.scan`; here it is a Python loop over the rows of `epoch_permutation`
@@ -11,7 +12,8 @@ is the module's state. The optimizer is optax's Adam written out in torch
 (`Adam`), one tensor at a time in optax's order of operations, with a
 piecewise-constant schedule read at the optimizer's own update count; its
 state is a plain dict of tensors and the count, which the checkpoint holds
-beside the module state dicts (`utils/checkpoints.py`).
+beside the module state dicts (`utils/checkpoints.py`). `fit_streaming`
+feeds the same step from `utils.native.FastLoader` through pinned buffers.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from ..utils import xrlite as xr
 __all__ = ["Adam", "TrainingState", "piecewise_constant_schedule",
            "multistep_adam", "fit", "make_train_step", "log_to_dataset",
            "apply_in_batches", "epoch_permutation", "init_training_state",
-           "named_params", "mean_metrics", "TrainCheckpointer"]
+           "named_params", "mean_metrics", "TrainCheckpointer",
+           "fit_streaming"]
 
 
 class TrainCheckpointer:
@@ -297,6 +300,109 @@ def fit(loss_fn: Callable, state: TrainingState, tx: Adam,
                              if "loss" in k))
     module.eval()
     ckpt.clear()
+    return state, log
+
+
+def fit_streaming(loss_fn: Callable, state: TrainingState, tx: Adam,
+                  loader, fields: tuple, num_epochs: int, key=None,
+                  draws: Callable | None = None,
+                  log_dict: dict | None = None, verbose: bool = True):
+    """Training loop fed by a host-side `utils.native.FastLoader` (twin
+    :247-294), for data that do not fit on the card (device-resident `fit`
+    is preferred otherwise): the loader's threads assemble the next shuffled
+    batches while the card runs the current update.
+
+    loss_fn(batch, train) -> (loss, metrics) on the state's module, batch =
+    the store's `fields` in order, as tensors on the module's device in its
+    dtype, plus `draws(generator, batch)` where given: the twin's per-batch
+    key split becomes a torch.Generator on the module's device, seeded with
+    `key` (an int, 0 by default, or a Generator), from which `draws` draws.
+    Epoch e reads `loader.epoch(seed=e)`, as the twin does.
+
+    On a card each batch lands in one of two pinned host buffers and
+    goes to the card in one non-blocking copy on a copy stream, so that the
+    copy of batch b+1 overlaps the update of batch b. A host buffer is
+    refilled only after the event recorded behind its copy has completed,
+    and its device buffer only after the update that read it. The metrics
+    are summed on the device and read on the host once an epoch, as
+    per-epoch means under the twin's keys. Returns (state, log)."""
+    n_buffers = 2
+    module = state.module
+    p0 = next(module.parameters())
+    device, dtype = p0.device, p0.dtype
+    generator = key if isinstance(key, torch.Generator) else \
+        torch.Generator(device=device).manual_seed(int(key or 0))
+    log = log_dict if log_dict is not None else {}
+    step = make_train_step(loss_fn, module, tx)
+    meta = loader.meta["fields"]
+    shape = (loader.batch_size, loader.sample_floats)
+    cuda = device.type == "cuda"
+    if cuda:
+        host = [torch.empty(shape, dtype=torch.float32, pin_memory=True)
+                for _ in range(n_buffers)]
+        dev = [torch.empty(shape, dtype=torch.float32, device=device)
+               for _ in range(n_buffers)]
+        copied = [torch.cuda.Event() for _ in range(n_buffers)]
+        used = [torch.cuda.Event() for _ in range(n_buffers)]
+        copy_stream = torch.cuda.Stream(device)
+        compute = torch.cuda.current_stream(device)
+    else:
+        host = [np.empty(shape, dtype=np.float32) for _ in range(n_buffers)]
+
+    def to_device(k: int) -> torch.Tensor:
+        """Batch k's flat rows on the device, ordered on the compute
+        stream."""
+        if not cuda:
+            return torch.from_numpy(host[k]).to(dtype, copy=True)
+        with torch.cuda.stream(copy_stream):
+            copy_stream.wait_event(used[k])
+            dev[k].copy_(host[k], non_blocking=True)
+            copied[k].record(copy_stream)
+        compute.wait_event(copied[k])
+        return dev[k]
+
+    def batch_of(flat: torch.Tensor) -> tuple:
+        out = []
+        for f in fields:
+            info = meta[f]
+            seg = flat[:, info["offset"]:info["offset"] + info["size"]]
+            out.append(seg.reshape((flat.shape[0],) + tuple(info["shape"]))
+                       .to(dtype))
+        return tuple(out)
+
+    def before_fill(k: int):
+        if cuda:
+            copied[k].synchronize()
+
+    t_start = time.time()
+    for epoch in range(num_epochs):
+        t_e = time.time()
+        sums, count = {}, 0
+        for b, _ in enumerate(loader.epoch(seed=epoch, out=host,
+                                           before_fill=before_fill)):
+            k = b % n_buffers
+            batch = batch_of(to_device(k))
+            if draws is not None:
+                batch = batch + tuple(draws(generator, batch))
+            metrics = step(state.opt_state, batch)
+            if cuda:
+                used[k].record(compute)
+            for name, v in metrics.items():
+                sums[name] = sums[name] + v if name in sums else v
+            count += 1
+        state.step += count
+        if sums:
+            means = torch.stack([v.to(torch.float64) for v in sums.values()]
+                                ).cpu() / max(count, 1)
+            for name, v in zip(sums, means):
+                log.setdefault(name, []).append(float(v))
+        if verbose:
+            t = time.time()
+            eta = (t - t_start) * (num_epochs / (epoch + 1) - 1)
+            print(f"[{epoch + 1}/{num_epochs}] [{t - t_e:.2f}/{eta:.2f}] "
+                  + " ".join(f"{k}: {v[-1]:.4g}" for k, v in log.items()
+                             if "loss" in k))
+    module.eval()
     return state, log
 
 

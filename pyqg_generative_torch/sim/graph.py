@@ -36,6 +36,9 @@ launch.
   `weights_generation`; a graph holds the addresses of the weights derived
   at its capture, so on a new generation the step drops its graphs and warms
   up and captures again, and never replays a graph of the old weights.
+* **NaN checks.** While `utils.debugging.debug_nans` is open, whose
+  checks read the device, the step neither captures nor replays: it runs
+  eagerly.
 * **Failure raises.** A capture that meets a host read of the device, an
   allocation of K2's counters or any other call that stream capture refuses
   raises; so does a replay that fails, and a capture that records K2 as a
@@ -50,6 +53,7 @@ import torch
 from ..ml import fused_conv
 from ..qg import core, diagnostics
 from ..qg.params import QGParams
+from ..utils import debugging
 from . import simulate
 from .stochastic import redraws
 
@@ -124,9 +128,11 @@ class GraphedStep:
         with torch.cuda.stream(self.stream):
             carry = self._load(carry)
             key = self._branch(carry)
-            if key in self._graphs:
+            checking = debugging.checks_active()
+            if key in self._graphs and not checking:
                 out = self._replay(key, carry)
-            elif key in self._seen and self._eager >= WARMUP_STEPS:
+            elif key in self._seen and self._eager >= WARMUP_STEPS \
+                    and not checking:
                 self._capture(key, carry)
                 out = self._replay(key, carry)
             else:

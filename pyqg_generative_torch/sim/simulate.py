@@ -104,17 +104,18 @@ def _snapshot(state: core.QGState, p: QGParams) -> dict:
 
 
 def init_run_carry(p: QGParams, q0, generator, model=None,
-                   with_diags: bool = True, device=None):
+                   with_diags: bool = True, device=None, rows=None):
     """Initial carry (QGState, SamplerState|None, DiagAccumulator|None) of a
     batch of members: q0 is (..., 2, ny, nx); `generator` a torch.Generator
-    or a seed."""
+    or a seed; `rows` as `init_sampler`'s, for a rank's block of a sharded
+    ensemble."""
     device = resolve_device(device)
     state = core.init_state(q0, p, device=device)
     batch = tuple(state.qh.shape[:-3])
     sstate = None
     if model is not None:
         sstate = init_sampler(generator, model, p.ny_, p.nx,
-                              core.dtypes(p)[0], batch, device)
+                              core.dtypes(p)[0], batch, device, rows)
     acc = diagnostics.init_diags(p, model is not None, batch, device) \
         if with_diags else None
     return state, sstate, acc
@@ -149,8 +150,9 @@ def _simulate_program(p: QGParams, model, sampling, nsteps,
     advance = _advance_program(p, model, sampling, nsteps, steps_per_snap,
                                n_snaps, with_diags)
 
-    def run(q0, generator, device=None):
-        carry = init_run_carry(p, q0, generator, model, with_diags, device)
+    def run(q0, generator, device=None, rows=None):
+        carry = init_run_carry(p, q0, generator, model, with_diags, device,
+                               rows)
         _, snaps, diags = advance(carry)
         return snaps, diags
 
@@ -283,19 +285,34 @@ def run_ensemble(pyqg_params: QGParams, parameterization=None,
                  n_ens: int = 10, q_init=None,
                  sampling_freq: float = ANDREW_1000_STEPS,
                  key: int = 0, with_diags: bool = True,
-                 device=None) -> xr.Dataset:
+                 device=None, sharding=None) -> xr.Dataset:
     """N online members advanced together as one batch. Member j starts from
     `set_initial_condition(p, key*1000 + j)` unless `q_init` is given; the
     latent noise comes from one generator seeded with `key`. `device=None`
-    means CUDA."""
+    means CUDA (this rank's card).
+
+    With `sharding` (`parallel.mesh.ensemble_sharding`), each rank of the
+    mesh axis advances its block of members (`sharding.rows`, which raises
+    unless the axis splits n_ens evenly) on its device, through the same
+    graphed step, and every rank returns the whole Dataset
+    (`sharding.gather`). Each rank draws the whole ensemble's noise from the
+    generator seeded with `key` and keeps its rows, so member j of a sharded
+    run draws what member j of the unsharded run draws."""
     p = pyqg_params
     device = resolve_device(device)
     model, sampling, nsteps = _normalize_parameterization(parameterization)
     steps_per_snap, n_snaps = _snap_counts(p, sampling_freq)
     q0, generator = _ensemble_start(p, n_ens, q_init, key, device)
+    rows = None
+    if sharding is not None:
+        start, stop = sharding.rows(n_ens)
+        q0, rows = q0[start:stop], (n_ens, start, stop)
     program = _simulate_program(p, model, sampling, nsteps, steps_per_snap,
                                 n_snaps, with_diags)
-    snaps, diags = program(q0, generator, device)
+    snaps, diags = program(q0, generator, device, rows)
+    if sharding is not None:
+        snaps = {k: sharding.gather(v) for k, v in snaps.items()}
+        diags = {k: sharding.gather(v) for k, v in diags.items()}
     return _build_dataset(_to_numpy(snaps), _to_numpy(diags), p,
                           steps_per_snap * p.dt, n_snaps, run_dim=True)
 

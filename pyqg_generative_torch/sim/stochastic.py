@@ -33,28 +33,45 @@ class SamplerState:
     forcing: torch.Tensor        # cached PV forcing (..., 2, ny, nx)
     counter: int                 # steps since start, shared by all members
     generator: torch.Generator
+    # (members of the whole ensemble, start, stop) where this state holds
+    # rows [start, stop) of a sharded ensemble: every draw is the whole
+    # ensemble's, of which it keeps its rows, so that member j draws what it
+    # draws unsharded
+    rows: tuple | None = None
 
 
 def init_sampler(generator, model, ny: int, nx: int, dtype: torch.dtype,
-                 batch_shape=(), device=None) -> SamplerState:
+                 batch_shape=(), device=None, rows=None) -> SamplerState:
     """`generator` is a torch.Generator or an integer seed (then `device`
-    says where the generator lives; `None` means CUDA)."""
+    says where the generator lives; `None` means CUDA). With `rows` =
+    (members, start, stop), the state holds rows [start, stop) of an
+    ensemble of `members` along the leading batch axis (`batch_shape`'s
+    first entry is stop - start)."""
     if not isinstance(generator, torch.Generator):
         generator = torch.Generator(device=resolve_device(device)) \
             .manual_seed(int(generator))
-    noise = model.generate_latent_noise(generator, ny, nx, batch_shape)
+    if rows is None:
+        noise = model.generate_latent_noise(generator, ny, nx, batch_shape)
+    else:
+        noise = model.generate_latent_noise(
+            generator, ny, nx, (rows[0],) + tuple(batch_shape[1:])
+        )[rows[1]:rows[2]]
     forcing = torch.zeros(tuple(batch_shape) + (2, ny, nx), dtype=dtype,
                           device=generator.device)
     return SamplerState(noise=noise, forcing=forcing, counter=0,
-                        generator=generator)
+                        generator=generator, rows=rows)
 
 
 def _draw(sstate: SamplerState) -> torch.Tensor:
-    noise = sstate.noise
+    noise, rows = sstate.noise, sstate.rows
     if noise.numel() == 0:
         return noise
-    return torch.randn(noise.shape, generator=sstate.generator,
-                       dtype=noise.dtype, device=noise.device)
+    if rows is None:
+        return torch.randn(noise.shape, generator=sstate.generator,
+                           dtype=noise.dtype, device=noise.device)
+    return torch.randn((rows[0],) + tuple(noise.shape[1:]),
+                       generator=sstate.generator, dtype=noise.dtype,
+                       device=noise.device)[rows[1]:rows[2]]
 
 
 def redraws(sstate: SamplerState, sampling: str, nsteps: int) -> bool:

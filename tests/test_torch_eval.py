@@ -38,7 +38,9 @@ from pyqg_generative_torch.models import \
     ZannaBolton2020, load_model, save_model_args, save_variables
 from pyqg_generative_torch.models.base import extract
 from pyqg_generative_torch.qg import core as tcore
+from pyqg_generative_torch.parallel import sweep as tsweep
 from pyqg_generative_torch.qg import spectral as tspectral
+from pyqg_generative_torch.utils import plot as tplot
 from pyqg_generative_torch.qg.params import QGParams as TParams
 from pyqg_generative_torch.sim import generate_subgrid_forcing_batch, \
     run_simulation
@@ -137,7 +139,8 @@ def forcing_ds():
 # ------------------------------------------------------------ the copies
 
 COPIES = {"qg/spectral.py": tspectral, "eval/metrics.py": tmetrics,
-          "eval/forecast.py": tforecast}
+          "eval/forecast.py": tforecast, "utils/plot.py": tplot,
+          "parallel/sweep.py": tsweep}
 
 
 @pytest.mark.parametrize("path", sorted(COPIES))

@@ -17,13 +17,14 @@ import torch
 from pyqg_generative_torch.ml import _build, fused_conv
 from pyqg_generative_torch.ml import nets
 from pyqg_generative_torch.ml.nets import fold_batchnorm
-from pyqg_generative_torch.ml.weights import read_msgpack, seeded_variables
+from pyqg_generative_torch.ml.weights import params_from_jax, read_msgpack, \
+    seeded_variables
 from pyqg_generative_torch.models import ANNModel, CGANRegression, \
     CVAEBottleneck, CVAERegression, MeanVarModel, OLSModel, \
     Parameterization, load_model, physical, save_model_args, save_variables
 from pyqg_generative_torch.qg import core
 from pyqg_generative_torch.qg.params import QGParams
-from pyqg_generative_torch.entry import entry
+from pyqg_generative_torch.entry import dryrun_multichip, entry
 from pyqg_generative_torch.eval.comparison import \
     coarsegrain_reference_dataset
 from pyqg_generative_torch.sim import advance_run, \
@@ -32,6 +33,7 @@ from pyqg_generative_torch.sim import advance_run, \
     run_ensemble_segmented, run_simulation, run_with_snapshots, simulate
 from pyqg_generative_torch.sim.stochastic import init_sampler
 from pyqg_generative_torch.utils import xrlite as xr
+from pyqg_generative_torch.utils.debugging import first_bad_step
 
 torch.set_num_threads(1)
 
@@ -69,9 +71,15 @@ def test_no_jax_imports():
                    "ml/weights", "ml/nets", "ml/train", "qg/spectral",
                    "eval/__init__", "eval/comparison", "eval/metrics",
                    "eval/forecast", "entry", "utils/checkpoints",
-                   "exp/__init__", "exp/pipeline", "exp/cli", "ml/multifit"):
+                   "exp/__init__", "exp/pipeline", "exp/cli", "ml/multifit",
+                   "utils/native", "utils/debugging", "utils/profiling",
+                   "utils/plot", "utils/__init__", "parallel/__init__",
+                   "parallel/mesh", "parallel/sweep", "parallel/spawn",
+                   "parallel/dryrun"):
         assert f"pyqg_generative_torch/{module}.py" in names
     assert "scripts/torch_online_score.py" in names
+    assert "scripts/torch_fastloader_race.py" in names
+    assert "scripts/torch_gan_step_kinks.py" in names
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -134,7 +142,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
              lambda: pipeline.run_parameterized(str(tmp_path), FOLDER),
              lambda: pipeline.coarsen(np.zeros((2, 16, 16)), "Operator1", 8),
              lambda: cli.main(["reference", "--nx", "16", "--subfolder",
-                               str(tmp_path)])]
+                               str(tmp_path)]),
+             lambda: first_bad_step(p, np.zeros((2, 16, 16)), 2, 1),
+             lambda: dryrun_multichip(1)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -1011,3 +1021,77 @@ def test_gan_ensemble_replica_equals_fit_on_card(tmp_path):
         for f in ("G_opt.msgpack", "stats.npz"):
             assert (pathlib.Path(m.folder) / f).read_bytes() == \
                 (pathlib.Path(r.folder) / f).read_bytes(), f
+
+
+@pytest.mark.cuda
+def test_native_loader_feeds_the_card_through_pinned_buffers(tmp_path):
+    """fit_streaming on the card from the native loader, two pinned
+    buffers: every epoch's batches reach the card whole (the tags of each
+    epoch cover every sample once, plus the wrapped last batch), recorded on
+    the card without a sync; and its losses match the same run on the CPU
+    (float32, the numpy loader in both) to 1e-5."""
+    _need_card()
+    from pyqg_generative_torch.models.common import mse_loss_fn
+    from pyqg_generative_torch.ml import train as T
+    from pyqg_generative_torch.utils.native import FastLoader, \
+        write_sample_store
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((100, 16, 16, 2)).astype(np.float32)
+    X[:, 0, 0, 0] = np.arange(100)
+    write_sample_store(str(tmp_path), {"x": X, "y": 0.5 * X})
+
+    def run(device, loader):
+        net = nets.AndrewCNN(2, 2, hidden_channels=(8,), batch_norm=False)
+        net.load_state_dict(params_from_jax(seeded_variables(net, 2)))
+        net = net.to(device)
+        tx = T.multistep_adam(1e-3, 2, 7)
+        seen = []
+
+        def loss_fn(batch, train):
+            seen.append(batch[0][:, 0, 0, 0].clone())
+            return mse_loss_fn(net)(batch, train)
+
+        state = T.TrainingState(net, tx.init(T.named_params(net)))
+        _, log = T.fit_streaming(loss_fn, state, tx, loader, ("x", "y"), 2,
+                                 verbose=False)
+        return log["loss"], torch.cat(seen).cpu().numpy().astype(int)
+
+    loader = FastLoader(str(tmp_path), batch_size=16)
+    assert loader.native
+    _, tags = run("cuda", loader)
+    for epoch in tags.reshape(2, -1):
+        assert sorted(epoch[:100]) == list(range(100))
+        assert list(epoch[100:]) == list(epoch[:12])
+    loss_card, _ = run("cuda", FastLoader(str(tmp_path), batch_size=16,
+                                          force_python=True))
+    loss_cpu, _ = run("cpu", FastLoader(str(tmp_path), batch_size=16,
+                                        force_python=True))
+    np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_one_rank_sharded_ensemble_is_bitwise_on_card():
+    """run_ensemble of eddy_gan_64 with ensemble_sharding over a 1-rank NCCL
+    group equals the unsharded run bitwise (2 members x 64^2, AR1,
+    diagnostics on, graphed), and launches K1."""
+    _need_card()
+    import torch.distributed as dist
+    from pyqg_generative_torch.parallel import ensemble_sharding, make_mesh
+    from pyqg_generative_torch.parallel.spawn import free_port
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        p = QGParams(nx=64, dt=14400.0, tmax=8 * 14400.0, tavestart=0.0)
+        closure = {"self": load_model(FOLDER, device="cuda"),
+                   "sampling": "AR1", "nsteps": 1}
+        kw = dict(n_ens=2, sampling_freq=4 * 14400.0, device="cuda")
+        before = fused_conv.launches
+        ds = run_ensemble(p, closure, sharding=ensemble_sharding(
+            make_mesh()), **kw)
+        assert fused_conv.launches > before
+        ref = run_ensemble(p, closure, **kw)
+        assert sorted(ds.keys()) == sorted(ref.keys())
+        for k in ref.keys():
+            assert np.array_equal(ds[k].values, ref[k].values), k
+    finally:
+        dist.destroy_process_group()
