@@ -775,17 +775,19 @@ def check_and_time_kernels(fused_conv, smi):
     return rows
 
 
-def set_counts(fused_conv, graph):
+def set_counts():
     """Every launch count and the graph's step counts to 0."""
-    for c in COUNTS:
-        setattr(fused_conv, c, 0)
-    for c in GRAPH_COUNTS:
-        setattr(graph, c, 0)
+    from pyqg_generative_torch.utils import profiling
+    profiling.reset_counters()
 
 
-def read_counts(fused_conv, graph):
-    return ({c: getattr(fused_conv, c) for c in COUNTS},
-            {c: getattr(graph, c) for c in GRAPH_COUNTS})
+def read_counts():
+    """({launch count: value}, {graph step count: value}), read from the
+    port's counters."""
+    from pyqg_generative_torch.utils import profiling
+    c = profiling.counters()
+    return ({k: c.get(f"fused_conv.{k}", 0) for k in COUNTS},
+            {k: c.get(f"graph.{k}", 0) for k in GRAPH_COUNTS})
 
 
 def eager_ensemble(p, closure, n_ens, steps_per_snap, n_snaps, key=0):
@@ -826,7 +828,7 @@ def drive_path(name, fused_conv, graph, p):
     from pyqg_generative_torch.models import load_model
     from pyqg_generative_torch.sim import run_ensemble
     folder, kw, count, *_ = PATHS[name]
-    set_counts(fused_conv, graph)
+    set_counts()
     # the probe is cached per process; a fresh process resolves "dxb" anew
     fused_conv.bitcast_packing.cache_clear()
     model = load_model(folder, device=DEV, **kw)
@@ -839,7 +841,7 @@ def drive_path(name, fused_conv, graph, p):
     ds = run_ensemble(p.replace(tmax=STEPS * p.dt), closure, n_ens=MEMBERS,
                       sampling_freq=SNAP_EVERY * p.dt, device=DEV)
     wall = time.perf_counter() - t0
-    counts, steps = read_counts(fused_conv, graph)
+    counts, steps = read_counts()
     calls = WARMUP_STEPS + STEPS
     want = {c: 0 for c in COUNTS}
     want[count] = steps["eager_steps"] + steps["captured_steps"]
@@ -865,13 +867,13 @@ def drive_path(name, fused_conv, graph, p):
         raise AssertionError(f"{name}: no kinetic energy accumulated")
     rate = MEMBERS * STEPS / wall
 
-    set_counts(fused_conv, graph)
+    set_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eager = eager_ensemble(p.replace(tmax=STEPS * p.dt), closure, MEMBERS,
                            SNAP_EVERY, n_snaps)
     eager_wall = time.perf_counter() - t0
-    eager_counts, eager_steps = read_counts(fused_conv, graph)
+    eager_counts, eager_steps = read_counts()
     want = {c: 0 for c in COUNTS}
     want[count] = STEPS
     if eager_counts != want or any(eager_steps.values()):
@@ -1244,9 +1246,9 @@ def every_closure(fused_conv, graph, p, smi):
                                 n_ens=MEMBERS,
                                 sampling_freq=ZOO_SNAP * pz.dt, device=DEV)
 
-        set_counts(fused_conv, graph)
+        set_counts()
         ds = run()
-        counts, steps = read_counts(fused_conv, graph)
+        counts, steps = read_counts()
         want = {c: 0 for c in COUNTS}
         if count:
             want[count] = steps["eager_steps"] + steps["captured_steps"]
@@ -1346,14 +1348,14 @@ def forcing_on_card(fused_conv, graph, smi):
     steps = DNS_SNAPS * int(round(ANDREW_1000_STEPS / p.dt))
     readings = {}
     for run in ("first", "second"):
-        set_counts(fused_conv, graph)
+        set_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = generate_subgrid_forcing([NX], p, ANDREW_1000_STEPS,
                                        ("Operator2", "Operator5"),
                                        device=DEV)
         seconds = time.perf_counter() - t0
-        counts, gsteps = read_counts(fused_conv, graph)
+        counts, gsteps = read_counts()
         if any(counts.values()) or gsteps["eager_steps"] + \
                 gsteps["replayed_steps"] != steps or \
                 gsteps["replayed_steps"] < steps - 10:
@@ -1429,12 +1431,12 @@ def offline_on_card(fused_conv, graph, forcing, rows, smi):
     for name, row, kernel in (("gan", "k1", "K1"), ("vae", "k2", "K2")):
         folder, kw, count, *_ = PATHS[name]
         model = load_model(folder, device=DEV, **kw)
-        set_counts(fused_conv, graph)
+        set_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = model.test_offline(ds, ensemble_size=OFFLINE_M)
         seconds = time.perf_counter() - t0
-        counts = read_counts(fused_conv, graph)[0]
+        counts = read_counts()[0]
         want = {c: 0 for c in COUNTS}
         want[count] = want_calls
         if counts != want:
@@ -1535,9 +1537,9 @@ def offline_on_card(fused_conv, graph, forcing, rows, smi):
         (q / std * card_model.x_scale.std.reshape(1, 1, 2, 1, 1)).astype(
             np.float32), ds["q"].dims)
     for what, data in (("snapshots", ds), ("developed", developed)):
-        set_counts(fused_conv, graph)
+        set_counts()
         card = card_model.predict(data)
-        counts = read_counts(fused_conv, graph)[0]
+        counts = read_counts()[0]
         if counts["launches"] != 2 or counts["launches_bf16"]:
             raise AssertionError(f"GZ offline: launch counts {counts}, "
                                  "expected 2 float32 K1 calls")
@@ -1582,13 +1584,13 @@ def online_scores(fused_conv, graph, smi):
     tmax = DNS_SNAPS * ANDREW_1000_STEPS
     p = EDDY_PARAMS.with_nx(NX).replace(tavestart=0.0, tmax=tmax)
     model = load_model(FOLDER, device=DEV)
-    set_counts(fused_conv, graph)
+    set_counts()
     t0 = time.perf_counter()
     ens = run_ensemble(p, {"self": model, "sampling": "AR1", "nsteps": 1},
                        n_ens=MEMBERS, sampling_freq=ANDREW_1000_STEPS,
                        device=DEV)
     ens_s = time.perf_counter() - t0
-    counts, gsteps = read_counts(fused_conv, graph)
+    counts, gsteps = read_counts()
     if counts["launches"] != gsteps["eager_steps"] + \
             gsteps["captured_steps"] or gsteps["replayed_steps"] < 1:
         raise AssertionError(f"online GAN: launch counts {counts}, graph "
@@ -1627,12 +1629,12 @@ def entry_on_card(fused_conv, graph, rows, smi):
     from pyqg_generative_torch.models.common import nhwc_from_lev
     from pyqg_generative_torch.qg import core
     from pyqg_generative_torch.qg.params import QGParams
-    set_counts(fused_conv, graph)
+    set_counts()
     fn, (state, sstate) = entry()
     for _ in range(ENTRY_CALLS):
         state, sstate = fn(state, sstate)
     torch.cuda.synchronize()
-    counts = read_counts(fused_conv, graph)[0]
+    counts = read_counts()[0]
     want = {c: 0 for c in COUNTS}
     want["launches_bf16"] = ENTRY_CALLS
     if counts != want or not torch.isfinite(state.qh).all():
@@ -1709,14 +1711,14 @@ def training_data(fused_conv, graph, smi):
     p = EDDY_PARAMS.with_nx(DNS_NX)
     p = p.replace(tmax=TRAIN_SNAPS * TRAIN_SNAP_STEPS * p.dt)
     members = TRAIN_MEMBERS + TEST_MEMBERS
-    set_counts(fused_conv, graph)
+    set_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     runs = generate_subgrid_forcing_batch(
         [NX], p, TRAIN_SNAP_STEPS * p.dt, ("Operator1",),
         keys=range(100, 100 + members), device=DEV)
     seconds = time.perf_counter() - t0
-    counts, gsteps = read_counts(fused_conv, graph)
+    counts, gsteps = read_counts()
     steps = TRAIN_SNAPS * TRAIN_SNAP_STEPS
     if any(counts.values()) or gsteps["eager_steps"] + \
             gsteps["replayed_steps"] != steps:
@@ -1794,14 +1796,14 @@ def train_every_closure(fused_conv, graph, ds_train, ds_test, smi):
     for name, (make, fit_kw, overrides, stats) in \
             closures_to_train().items():
         folder = str(TRAIN_DIR / name)
-        set_counts(fused_conv, graph)
+        set_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model = make(folder)
         model.fit(ds_train, ds_test, **fit_kw)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        counts = read_counts(fused_conv, graph)[0]
+        counts = read_counts()[0]
         logged = {}
         for f in stats:
             log_ds = xr.Dataset.from_npz(f"{folder}/{f}")
@@ -1818,7 +1820,7 @@ def train_every_closure(fused_conv, graph, ds_train, ds_test, smi):
         offline = loaded.test_offline(ds_test, TRAIN_M)
         torch.cuda.synchronize()
         offline_s = time.perf_counter() - t0
-        launches = read_counts(fused_conv, graph)[0]
+        launches = read_counts()[0]
         scores = {k: float(np.mean(offline[k].values))
                   for k in ("L2_mean", "L2_total", "L2_residual")}
         if not all(np.isfinite(v) for v in scores.values()):
@@ -1988,7 +1990,7 @@ def resume_on_card(fused_conv, graph, ds_train, ds_test, smi):
     from pyqg_generative_torch.models import CGANRegression
     kw = dict(num_epochs=2, batch_size=TRAIN_BATCH, nruns=2, key=1,
               checkpoint_every=1, verbose=False)
-    set_counts(fused_conv, graph)
+    set_counts()
     t0 = time.perf_counter()
     ref = CGANRegression(nx=NX, folder=str(TRAIN_DIR / "resume_ref"),
                          device=DEV)
@@ -2021,7 +2023,7 @@ def resume_on_card(fused_conv, graph, ds_train, ds_test, smi):
             if not torch.equal(a[k], b[k]):
                 differ[f"{net}.{k}"] = float((a[k] - b[k]).abs().max())
     seconds = time.perf_counter() - t0
-    launches = read_counts(fused_conv, graph)[0]
+    launches = read_counts()[0]
     log(f"phase 11, GAN resume on the card (2 epochs against 1 + 1): "
         f"{'bitwise equal' if not differ else differ} in {seconds:.1f} s "
         f"on {smi}")
@@ -2043,17 +2045,17 @@ def stable_epoch_on_card(fused_conv, graph, gan, ds_test, smi):
     orig = sim.run_ensemble
 
     def counted(*a, **k):
-        before = read_counts(fused_conv, graph)
+        before = read_counts()
         generation = gan.weights_generation
         ds = orig(*a, **k)
-        after = read_counts(fused_conv, graph)
+        after = read_counts()
         runs.append({"weights_generation": generation,
                      **{c: after[1][c] - before[1][c] for c in GRAPH_COUNTS},
                      "launches": after[0]["launches"]
                      - before[0]["launches"]})
         return ds
 
-    set_counts(fused_conv, graph)
+    set_counts()
     generation = gan.weights_generation
     sim.run_ensemble = counted
     try:
@@ -2065,7 +2067,7 @@ def stable_epoch_on_card(fused_conv, graph, gan, ds_test, smi):
         seconds = time.perf_counter() - t0
     finally:
         sim.run_ensemble = orig
-    counts = read_counts(fused_conv, graph)
+    counts = read_counts()
     ok = (best in (1, 2) and sorted(results) == [1, 2] and len(runs) == 2
           and all(r["captured_steps"] > 0 and r["replayed_steps"] > 0
                   and r["launches"] > 0 for r in runs)
@@ -2184,11 +2186,11 @@ def training_path(fused_conv, graph, rows, smi):
                                     smi),
            "stable_epoch": stable_epoch_on_card(fused_conv, graph, gan,
                                                 ds_test, smi)}
-    set_counts(fused_conv, graph)
+    set_counts()
     out["step_readings"] = training_step_readings(ds_train, smi)
     parts = [c["launches"] for c in closures.values()] + [
         out["resume"]["launches"], out["stable_epoch"]["launch_counts"],
-        read_counts(fused_conv, graph)[0]]
+        read_counts()[0]]
     launches = {k: sum(p[k] for p in parts) for k in COUNTS}
     if not launches["launches"] or not launches["launches_packed"]:
         raise AssertionError(f"phase 11 launched no K1 or no K2: {launches}")
@@ -2207,13 +2209,13 @@ def pipeline_stage(name, fn, fused_conv, graph, stages, smi):
     """One stage of phase 12, with the counts set to 0 just before it and
     read just after: its seconds, launch counts and graph counts go into
     stages[name]. Returns fn()'s result."""
-    set_counts(fused_conv, graph)
+    set_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts, gsteps = read_counts(fused_conv, graph)
+    counts, gsteps = read_counts()
     stages[name] = {"seconds": seconds, "launches": counts,
                     "graph_counts": gsteps}
     log(f"phase 12, {name}: {seconds:.2f} s, launches {counts}, graph "
@@ -2724,11 +2726,11 @@ def trained_net_on_k1(fused_conv, graph, net, X, rows):
     folded = fold_batchnorm(params_to_jax(net.state_dict()))
     apply = fused_conv.make_online_cnn(folded, torch.float32, device=DEV)
     x = torch.as_tensor(X[:512], device=DEV)
-    set_counts(fused_conv, graph)
+    set_counts()
     with torch.no_grad():
         y = apply(x)
     torch.cuda.synchronize()
-    launches = read_counts(fused_conv, graph)[0]["launches"]
+    launches = read_counts()[0]["launches"]
     if launches != 1 or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"phase 13 offline evaluation: {launches} K1 "
                              "launches")
@@ -2769,12 +2771,12 @@ def mesh_on_card(fused_conv, graph, smi):
                    "sampling": "AR1", "nsteps": 1}
         kw = dict(n_ens=MEMBERS, sampling_freq=MESH_SNAP * p.dt,
                   device=DEV)
-        set_counts(fused_conv, graph)
+        set_counts()
         t0 = time.perf_counter()
         ds = run_ensemble(p, closure, sharding=ensemble_sharding(
             make_mesh()), **kw)
         seconds = time.perf_counter() - t0
-        counts, steps = read_counts(fused_conv, graph)
+        counts, steps = read_counts()
         ref = run_ensemble(p, closure, **kw)
     finally:
         dist.destroy_process_group()
@@ -2847,7 +2849,7 @@ def utilities_on_card(fused_conv, graph, phase4_rate, smi):
             p, rng=np.random.default_rng(j)).numpy()
             for j in range(MEMBERS)]), 0, model, device=DEV)
 
-    set_counts(fused_conv, graph)
+    set_counts()
     thr = measure_throughput(graph.GraphedStep(p, model, "AR1", 1), carry(),
                              n_steps=STEPS, warmup=3 * p.taveints)
     buf = io.StringIO()
@@ -2873,12 +2875,12 @@ def utilities_on_card(fused_conv, graph, phase4_rate, smi):
         raise AssertionError("phase 13: the trace names no K1 kernel")
     out["trace_k1_kernels"] = k1_names[:3]
 
-    before = read_counts(fused_conv, graph)[1]
+    before = read_counts()[1]
     gstep, c = graph.GraphedStep(p, model, "AR1", 1), carry()
     with debug_nans():
         for _ in range(NAN_STEPS):
             c = gstep(c)
-    after = read_counts(fused_conv, graph)[1]
+    after = read_counts()[1]
     if after["captured_steps"] != before["captured_steps"] or \
             after["replayed_steps"] != before["replayed_steps"]:
         raise AssertionError(f"phase 13: a graph under debug_nans {after}")
@@ -2899,7 +2901,7 @@ def utilities_on_card(fused_conv, graph, phase4_rate, smi):
     out["first_bad_step_seconds"] = time.perf_counter() - t0
     if out["first_bad_step_clean"] != -1:
         raise AssertionError(f"phase 13 first_bad_step: {out}")
-    counts = read_counts(fused_conv, graph)[0]
+    counts = read_counts()[0]
     log(f"phase 13, utilities: measure_throughput of the graphed main "
         f"path {out['measure_throughput']['member_steps_per_s']:.1f} "
         f"member-steps/s, bench_torch.py {bench['value']:.1f}, phase 4 "
@@ -3119,9 +3121,9 @@ def main():
                 for j in range(MEMBERS)]), 0, models[name], device=DEV)
             for _ in range(3 * p.taveints):  # both graphs captured
                 carry = step(carry)
-            before = read_counts(fused_conv, graph)[1]
+            before = read_counts()[1]
             prof[kind_] = step_profile(step, carry)
-            after = read_counts(fused_conv, graph)[1]
+            after = read_counts()[1]
             replays = after["replayed_steps"] - before["replayed_steps"]
             want = 2 * PROFILE_STEPS + QUEUED_STEPS \
                 if kind_ == "graphed" else 0

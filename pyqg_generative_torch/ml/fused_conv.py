@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import exact_fp32, resolve_device
+from ..utils import profiling
 from .nets import circular_conv2d
 
 __all__ = ["PackedCNN", "pack_folded_params", "merge_folded_pair",
@@ -51,16 +52,24 @@ __all__ = ["PackedCNN", "pack_folded_params", "merge_folded_pair",
            "packed_cnn_forward", "packed_cnn_forward_plain",
            "bitcast_pack_words", "bitcast_pack_words_plain",
            "bitcast_packing", "resolve_variant", "compute_dtype_of",
-           "make_online_cnn", "flops_per_member", "graph_kernel_nodes",
-           "launches",
-           "launches_bf16", "launches_packed", "launches_probe"]
+           "make_online_cnn", "flops_per_member", "graph_kernel_nodes"]
 
 # Kernel calls made by the wrappers on CUDA tensors (a K1 call enqueues the
-# whole Conv_1..Conv_n chain, one launch per layer; a K2 call is one launch).
-launches = 0          # K1, float32
-launches_bf16 = 0     # K1, bf16
-launches_packed = 0   # K2
-launches_probe = 0    # K3
+# whole Conv_1..Conv_n chain, one launch per layer; a K2 call is one launch),
+# as counters of `utils.profiling`; `fused_conv.launches` and the others
+# read them.
+COUNTERS = {"launches": "fused_conv.launches",                # K1, float32
+            "launches_bf16": "fused_conv.launches_bf16",      # K1, bf16
+            "launches_packed": "fused_conv.launches_packed",  # K2
+            "launches_probe": "fused_conv.launches_probe"}    # K3
+for _name in COUNTERS.values():
+    profiling.count(_name, 0)
+
+
+def __getattr__(name):
+    if name in COUNTERS:
+        return profiling.counters().get(COUNTERS[name], 0)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 # The twin's variant names and the kernel each maps to on Hopper. A name
 # ending in "pair" is resolved by the GZ model (`MeanVarModel`).
@@ -430,17 +439,14 @@ def fused_cnn_forward(x: torch.Tensor, packed: PackedCNN) -> torch.Tensor:
     """The Conv_1..Conv_n chain on x (B, H, W, Cin0) float32 NHWC, in
     `packed.dtype`. A CPU tensor takes the plain version; a CUDA tensor
     launches K1."""
-    global launches, launches_bf16
     _check_chain_input(x, packed, "K1")
     if x.device.type == "cpu":
         return fused_cnn_forward_plain(x, packed)
     B, H, W, _ = x.shape
     out = _launch_chain("fused_conv", x.contiguous(), packed,
                         (B, H, W, packed.meta[-1][2]), B, H, W)
-    if packed.dtype == torch.float32:
-        launches += 1
-    else:
-        launches_bf16 += 1
+    profiling.count("fused_conv.launches" if packed.dtype == torch.float32
+                    else "fused_conv.launches_bf16")
     return out
 
 
@@ -480,14 +486,13 @@ def packed_cnn_forward(x: torch.Tensor, packed: PackedCNN) -> torch.Tensor:
     `packed.dtype`, giving (B, H, W, Cout). "Packed" is the whole ensemble
     packed into one launch: a CUDA tensor launches K2 once for all members;
     a CPU tensor takes the plain version."""
-    global launches_packed
     _check_chain_input(x, packed, "K2")
     if x.device.type == "cpu":
         return packed_cnn_forward_plain(x, packed)
     B, H, W, _ = x.shape
     out = _launch_chain("packed_chain", x.contiguous(), packed,
                         (B, H, W, packed.meta[-1][2]), B, H, W)
-    launches_packed += 1
+    profiling.count("fused_conv.launches_packed")
     return out
 
 
@@ -511,7 +516,6 @@ def bitcast_pack_words(x: torch.Tensor) -> torch.Tensor:
     """The 32-bit words the device builds from row pairs (2i, 2i+1) of a
     (2R, C) bf16 tensor, as int64 in [0, 2^32). A CPU tensor takes the plain
     version; a CUDA tensor launches K3."""
-    global launches_probe
     if x.dtype != torch.bfloat16 or x.ndim != 2 or x.shape[0] % 2:
         raise ValueError(f"expected (2R, C) bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -527,7 +531,7 @@ def bitcast_pack_words(x: torch.Tensor) -> torch.Tensor:
                          torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
-    launches_probe += 1
+    profiling.count("fused_conv.launches_probe")
     return out
 
 

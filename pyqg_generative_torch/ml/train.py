@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..utils import xrlite as xr
+from ..utils.profiling import span
 
 __all__ = ["Adam", "TrainingState", "piecewise_constant_schedule",
            "multistep_adam", "fit", "make_train_step", "log_to_dataset",
@@ -124,7 +125,7 @@ class Adam:
     b2^(count+1))) + eps), with the schedule read at the count before the
     update, as optax reads it. The state is {"count": int, "mu": {name:
     tensor}, "nu": {name: tensor}}; `step` updates parameters and state in
-    place."""
+    place, inside the span `train.optimizer`."""
 
     def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
@@ -143,13 +144,14 @@ class Adam:
         count = state["count"]
         step_size = -self.learning_rate(count)
         bc1, bc2 = 1 - b1 ** (count + 1), 1 - b2 ** (count + 1)
-        for (name, p), g in zip(params.items(), grads):
-            mu = state["mu"][name]
-            nu = state["nu"][name]
-            mu.copy_((1 - b1) * g + b1 * mu)
-            nu.copy_((1 - b2) * (g * g) + b2 * nu)
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.copy_(p + step_size * update)
+        with span("train.optimizer"):
+            for (name, p), g in zip(params.items(), grads):
+                mu = state["mu"][name]
+                nu = state["nu"][name]
+                mu.copy_((1 - b1) * g + b1 * mu)
+                nu.copy_((1 - b2) * (g * g) + b2 * nu)
+                update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                p.copy_(p + step_size * update)
         state["count"] = count + 1
 
 

@@ -69,6 +69,7 @@ from ..ml.train import Adam, TrainCheckpointer, apply_in_batches, \
     piecewise_constant_schedule
 from ..ml.weights import params_from_jax, params_to_jax, read_msgpack
 from ..utils import xrlite as xr
+from ..utils.profiling import span
 from .base import Parameterization, array_to_dataset, extract, \
     prepare_PV_data, register_model, save_model_args, save_variables
 from .common import bn_apply, draw_chunks, eval_in_batches, lev_from_nhwc, \
@@ -540,45 +541,47 @@ def make_gan_batch_step(net: CGANRegression, txG: Adam, txD: Adam):
             y = y - ymean
         D.eval()
         with exact_fp32_training():
-            with torch.no_grad():
-                yf1 = g_forward(x, z1)
-                yf2 = g_forward(x, z2)
-                if net.regression == "full_loss":
-                    yf1 = yf1 + ymean
-                    yf2 = yf2 + ymean
+            with span("train.critic"):
+                with torch.no_grad():
+                    yf1 = g_forward(x, z1)
+                    yf2 = g_forward(x, z2)
+                    if net.regression == "full_loss":
+                        yf1 = yf1 + ymean
+                        yf2 = yf2 + ymean
 
-            # ---------------- critic update ------------------------------
-            Dtrue1 = D(torch.cat([x, y, yf2], -1))
-            Dtrue2 = D(torch.cat([x, yf1, y], -1))
-            Dfake = D(torch.cat([x, yf1, yf2], -1))
-            D_loss = -0.5 * (Dtrue1.mean() + Dtrue2.mean()) + Dfake.mean()
-            D_drift = LAMBDA_DRIFT * (Dtrue1 ** 2).mean()
-            ytrue_cat = torch.where(swap, torch.cat([yf1, y], -1),
-                                    torch.cat([y, yf2], -1))
-            yfake_cat = torch.cat([yf1, yf2], -1)
-            yinterp = (eps * ytrue_cat + (1 - eps) * yfake_cat
-                       ).requires_grad_(True)
-            dDdy, = torch.autograd.grad(
-                D(torch.cat([x, yinterp], -1)).sum(), yinterp,
-                create_graph=True)
-            norms = torch.sqrt(
-                (dDdy.reshape(dDdy.shape[0], -1) ** 2).sum(-1) + 1e-12)
-            D_grad = LAMBDA_GP * ((norms - 1.0) ** 2).mean()
-            gD = torch.autograd.grad(D_loss + D_grad + D_drift,
-                                     list(pD.values()))
-            txD.step(pD, gD, opt["D"])
+                # ---------------- critic update --------------------------
+                Dtrue1 = D(torch.cat([x, y, yf2], -1))
+                Dtrue2 = D(torch.cat([x, yf1, y], -1))
+                Dfake = D(torch.cat([x, yf1, yf2], -1))
+                D_loss = -0.5 * (Dtrue1.mean() + Dtrue2.mean()) + Dfake.mean()
+                D_drift = LAMBDA_DRIFT * (Dtrue1 ** 2).mean()
+                ytrue_cat = torch.where(swap, torch.cat([yf1, y], -1),
+                                        torch.cat([y, yf2], -1))
+                yfake_cat = torch.cat([yf1, yf2], -1)
+                yinterp = (eps * ytrue_cat + (1 - eps) * yfake_cat
+                           ).requires_grad_(True)
+                dDdy, = torch.autograd.grad(
+                    D(torch.cat([x, yinterp], -1)).sum(), yinterp,
+                    create_graph=True)
+                norms = torch.sqrt(
+                    (dDdy.reshape(dDdy.shape[0], -1) ** 2).sum(-1) + 1e-12)
+                D_grad = LAMBDA_GP * ((norms - 1.0) ** 2).mean()
+                gD = torch.autograd.grad(D_loss + D_grad + D_drift,
+                                         list(pD.values()))
+                txD.step(pD, gD, opt["D"])
 
             # ---------------- generator update (every 5th batch) ----------
             if i % 5 == 0:
-                yg1 = g_forward(x, z1)
-                yg2 = g_forward(x, z2)
-                if net.regression == "full_loss":
-                    yg1 = yg1 + ymean
-                    yg2 = yg2 + ymean
-                G_loss = -D(torch.cat([x, yg1, yg2], -1)).mean()
-                gG = torch.autograd.grad(G_loss, list(pG.values()))
-                txG.step(pG, gG, opt["G"])
-                G_loss = G_loss.detach().to(torch.float32)
+                with span("train.generator"):
+                    yg1 = g_forward(x, z1)
+                    yg2 = g_forward(x, z2)
+                    if net.regression == "full_loss":
+                        yg1 = yg1 + ymean
+                        yg2 = yg2 + ymean
+                    G_loss = -D(torch.cat([x, yg1, yg2], -1)).mean()
+                    gG = torch.autograd.grad(G_loss, list(pG.values()))
+                    txG.step(pG, gG, opt["G"])
+                    G_loss = G_loss.detach().to(torch.float32)
             else:
                 gG = None
                 G_loss = torch.zeros((), dtype=torch.float32,
@@ -706,11 +709,12 @@ class GanTrainer(GenerativeTrainer):
         self.best_template = params_to_jax(net.G.state_dict())
 
     def step(self, i: int, idx: torch.Tensor) -> dict:
-        Xd, Yd, Md = self.data
-        x = Xd[idx]
-        return self.batch_step(self.opt, (x, Yd[idx], Md[idx]), i,
-                               gan_draws(self.generator, x,
-                                         self.net.n_latent))
+        with span("train.step"):
+            Xd, Yd, Md = self.data
+            x = Xd[idx]
+            return self.batch_step(self.opt, (x, Yd[idx], Md[idx]), i,
+                                   gan_draws(self.generator, x,
+                                             self.net.n_latent))
 
     def trained(self) -> None:
         self.net._generator_changed()

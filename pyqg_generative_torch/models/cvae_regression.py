@@ -39,6 +39,7 @@ from ..ml.fused_conv import compute_dtype_of
 from ..ml.nets import AndrewCNN, init_weights
 from ..ml.train import Adam, piecewise_constant_schedule
 from ..ml.weights import params_from_jax, params_to_jax, read_msgpack
+from ..utils.profiling import span
 from .base import Parameterization, prepare_PV_data, register_model, \
     save_model_args, save_variables
 from .cgan_regression import CGANRegression, GenerativeTrainer, \
@@ -300,8 +301,10 @@ def make_vae_step(net, tx: Adam):
 
     def step(opt_state, batch, eps):
         with exact_fp32_training():
-            loss, metrics = loss_fn(*batch, eps, True)
-            grads = torch.autograd.grad(loss, list(params.values()))
+            with span("train.forward"):
+                loss, metrics = loss_fn(*batch, eps, True)
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, list(params.values()))
             tx.step(params, grads, opt_state)
         return {k: v.detach() for k, v in metrics.items()}
     return step
@@ -344,10 +347,13 @@ class VaeTrainer(GenerativeTrainer):
         self.best_template = params_to_jax(net.decoder.state_dict())
 
     def step(self, i: int, idx: torch.Tensor) -> dict:
-        Xd, Yd, Md = self.data
-        x = Xd[idx]
-        return self.vae_step(self.opt_state, (x, Yd[idx], Md[idx]),
-                             vae_eps(self.generator, self.net, x))
+        with span("train.step"):
+            with span("train.batch"):
+                Xd, Yd, Md = self.data
+                x = Xd[idx]
+                batch = (x, Yd[idx], Md[idx])
+                eps = vae_eps(self.generator, self.net, x)
+            return self.vae_step(self.opt_state, batch, eps)
 
     def trained(self) -> None:
         self.net._set_vae_variables()

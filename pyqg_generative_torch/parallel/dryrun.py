@@ -22,13 +22,13 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
-from ..ml import fused_conv
 from ..ml.nets import init_weights
 from ..ml.train import Adam, named_params
 from ..models.cgan_regression import LAMBDA_DRIFT, gan_draws, \
     make_gan_batch_step
 from ..qg.params import QGParams
 from ..sim.simulate import run_ensemble
+from ..utils import profiling
 from .mesh import DataParallel, batch_sharding, ensemble_sharding, \
     gather_state_dict, make_mesh, sync_batchnorm, tensor_parallel
 
@@ -247,10 +247,11 @@ def ensemble_gan(ens_mesh, n: int, device) -> dict:
                "sampling": "AR1", "nsteps": 1}
     kw = dict(n_ens=n, sampling_freq=2 * 14400.0, with_diags=True,
               device=device)
-    before = fused_conv.launches
+    before = profiling.counters()["fused_conv.launches"]
     ds = run_ensemble(p, closure, sharding=ensemble_sharding(ens_mesh),
                       **kw)
-    out = {"k1_launches": fused_conv.launches - before}
+    out = {"k1_launches": profiling.counters()["fused_conv.launches"]
+           - before}
     ref = run_ensemble(p, closure, **kw)
     q, q_ref = ds["q"].values, ref["q"].values
     out["bitwise"] = sorted(ds.keys()) == sorted(ref.keys()) and all(

@@ -39,6 +39,10 @@ launch.
 * **NaN checks.** While `utils.debugging.debug_nans` is open, whose
   checks read the device, the step neither captures nor replays: it runs
   eagerly.
+* **Spans** (`utils.profiling.span`): `graph.eager` around each eager step,
+  `graph.capture` around each capture (the graph pool's creation and
+  `instantiate` included), `graph.reset` where a new weights generation
+  drops the graphs. A replay only counts.
 * **Failure raises.** A capture that meets a host read of the device, an
   allocation of K2's counters or any other call that stream capture refuses
   raises; so does a replay that fails, and a capture that records K2 as a
@@ -53,21 +57,29 @@ import torch
 from ..ml import fused_conv
 from ..qg import core, diagnostics
 from ..qg.params import QGParams
-from ..utils import debugging
+from ..utils import debugging, profiling
 from . import simulate
 from .stochastic import redraws
 
-__all__ = ["GraphedStep", "WARMUP_STEPS", "eager_steps", "captured_steps",
-           "replayed_steps"]
+__all__ = ["GraphedStep", "WARMUP_STEPS"]
 
 WARMUP_STEPS = 3
 
-# Steps run by every GraphedStep of the process: eagerly, captured (each of
-# which is replayed at once) and replayed. A wrapper's launch count grows by
-# eager and captured steps only; a replay calls no wrapper.
-eager_steps = 0
-captured_steps = 0
-replayed_steps = 0
+# Steps run by every GraphedStep of the process, as counters of
+# `utils.profiling`: eagerly, captured (each of which is replayed at once)
+# and replayed. A wrapper's launch count grows by eager and captured steps
+# only; a replay calls no wrapper. `graph.eager_steps` and the others read
+# the counters.
+COUNTERS = {k: f"graph.{k}" for k in ("eager_steps", "captured_steps",
+                                      "replayed_steps")}
+for _name in COUNTERS.values():
+    profiling.count(_name, 0)
+
+
+def __getattr__(name):
+    if name in COUNTERS:
+        return profiling.counters().get(COUNTERS[name], 0)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 @dataclasses.dataclass
@@ -119,10 +131,11 @@ class GraphedStep:
         if self.stream is None:
             self.stream = torch.cuda.Stream(device)
         if self._weights_generation() != self._generation:
-            self._graphs.clear()
-            self._seen.clear()
-            self._eager = 0
-            self._generation = self._weights_generation()
+            with profiling.span("graph.reset"):
+                self._graphs.clear()
+                self._seen.clear()
+                self._eager = 0
+                self._generation = self._weights_generation()
         caller = torch.cuda.current_stream(device)
         self.stream.wait_stream(caller)
         with torch.cuda.stream(self.stream):
@@ -196,26 +209,31 @@ class GraphedStep:
                 b.copy_(t)
 
     def _run_eagerly(self, key, carry):
-        global eager_steps
-        out = self._step(carry)
-        self._store(out)
+        with profiling.span("graph.eager"):
+            out = self._step(carry)
+            self._store(out)
         self._seen.add(key)
         self._eager += 1
-        eager_steps += 1
+        profiling.count("graph.eager_steps")
         return self._with_tensors(out, self._buffers)
 
     def _capture(self, key, carry):
-        global captured_steps
+        with profiling.span("graph.capture"):
+            self._capture_graph(key, carry)
+        profiling.count("graph.captured_steps")
+
+    def _capture_graph(self, key, carry):
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         if carry[1] is not None:
             graph.register_generator_state(carry[1].generator)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        k2_calls = fused_conv.launches_packed
+        k2 = "fused_conv.launches_packed"
+        before = profiling.counters().get(k2, 0)
         with torch.cuda.graph(graph, pool=self._pool, stream=self.stream):
             out = self._step(carry)
             self._store(out)
-        k2_calls = fused_conv.launches_packed - k2_calls
+        k2_calls = profiling.counters()[k2] - before
         if k2_calls:
             # K2's grid.sync() needs a co-resident grid: its graph node must
             # keep the cooperative launch
@@ -231,13 +249,11 @@ class GraphedStep:
             graph,
             0 if sstate is None else out[1].counter - sstate.counter,
             0.0 if acc is None else out[2].count - acc.count)
-        captured_steps += 1
 
     def _replay(self, key, carry):
-        global replayed_steps
         g = self._graphs[key]
         g.graph.replay()
-        replayed_steps += 1
+        profiling.count("graph.replayed_steps")
         state, sstate, acc = carry
         state = dataclasses.replace(state, t=state.t + self.p.dt,
                                     tc=state.tc + 1)

@@ -17,6 +17,13 @@ coarse-graining operators and `PV_subgrid_forcing`, run eagerly, since
 their transfer functions are built at first use, which no capture may do.
 `generate_subgrid_forcing_batch` runs its members as one leading batch
 axis, as `run_ensemble` does.
+
+Spans (`utils.profiling.span`): each online driver is a root span named
+after it (`sim.run_ensemble`, with attrs `members`, `steps` and `key`);
+under it `sim.initial_conditions`, `sim.init_carry`, `sim.advance` (the
+step loop, with `sim.snapshot` and `sim.finalize` inside), `sim.to_host`
+(the copy to the host, which waits for the device's queue) and
+`sim.dataset`.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from ..qg.grid import make_grid
 from ..qg.operators import OPERATORS, PV_subgrid_forcing
 from ..qg.params import ANDREW_1000_STEPS, DAY, QGParams
 from ..utils import xrlite as xr
+from ..utils.profiling import span
 from . import graph
 from .stochastic import init_sampler, sample_forcing
 
@@ -110,14 +118,15 @@ def init_run_carry(p: QGParams, q0, generator, model=None,
     or a seed; `rows` as `init_sampler`'s, for a rank's block of a sharded
     ensemble."""
     device = resolve_device(device)
-    state = core.init_state(q0, p, device=device)
-    batch = tuple(state.qh.shape[:-3])
-    sstate = None
-    if model is not None:
-        sstate = init_sampler(generator, model, p.ny_, p.nx,
-                              core.dtypes(p)[0], batch, device, rows)
-    acc = diagnostics.init_diags(p, model is not None, batch, device) \
-        if with_diags else None
+    with span("sim.init_carry"):
+        state = core.init_state(q0, p, device=device)
+        batch = tuple(state.qh.shape[:-3])
+        sstate = None
+        if model is not None:
+            sstate = init_sampler(generator, model, p.ny_, p.nx,
+                                  core.dtypes(p)[0], batch, device, rows)
+        acc = diagnostics.init_diags(p, model is not None, batch, device) \
+            if with_diags else None
     return state, sstate, acc
 
 
@@ -127,18 +136,23 @@ def _advance_program(p: QGParams, model, sampling, nsteps,
     means): a resumable segment of a simulation, graphed on a CUDA carry.
     The tensors of the carry passed in are left as they were."""
     def advance(carry):
-        if carry[0].qh.is_cuda:
-            step = graph.GraphedStep(p, model, sampling, nsteps, with_diags)
-        else:
-            step = make_online_step(p, model, sampling, nsteps, with_diags)
-        snaps = []
-        for _ in range(n_snaps):
-            for _ in range(steps_per_snap):
-                carry = step(carry)
-            snaps.append(_snapshot(carry[0], p))
-        stacked = {k: torch.stack([s[k] for s in snaps], dim=-4)
-                   for k in snaps[0]}
-        diags = diagnostics.finalize(carry[2]) if with_diags else {}
+        with span("sim.advance"):
+            if carry[0].qh.is_cuda:
+                step = graph.GraphedStep(p, model, sampling, nsteps,
+                                         with_diags)
+            else:
+                step = make_online_step(p, model, sampling, nsteps,
+                                        with_diags)
+            snaps = []
+            for _ in range(n_snaps):
+                for _ in range(steps_per_snap):
+                    carry = step(carry)
+                with span("sim.snapshot"):
+                    snaps.append(_snapshot(carry[0], p))
+            with span("sim.finalize"):
+                stacked = {k: torch.stack([s[k] for s in snaps], dim=-4)
+                           for k in snaps[0]}
+                diags = diagnostics.finalize(carry[2]) if with_diags else {}
         return carry, stacked, diags
 
     return advance
@@ -168,6 +182,12 @@ def _grid_coords(p: QGParams) -> dict:
 def _build_dataset(snaps: dict, diags: dict, p: QGParams,
                    sampling_freq: float, n_snaps: int,
                    run_dim: bool = False) -> xr.Dataset:
+    with span("sim.dataset"):
+        return _dataset(snaps, diags, p, sampling_freq, n_snaps, run_dim)
+
+
+def _dataset(snaps: dict, diags: dict, p: QGParams, sampling_freq: float,
+             n_snaps: int, run_dim: bool) -> xr.Dataset:
     coords = _grid_coords(p)
     time_days = (np.arange(1, n_snaps + 1) * sampling_freq) / DAY
     lead = ("run", "time") if run_dim else ("time",)
@@ -192,7 +212,8 @@ def _snap_counts(p: QGParams, sampling_freq: float) -> tuple[int, int]:
 
 
 def _to_numpy(tensors: dict) -> dict:
-    return {k: v.cpu().numpy() for k, v in tensors.items()}
+    with span("sim.to_host"):
+        return {k: v.cpu().numpy() for k, v in tensors.items()}
 
 
 def _ensemble_start(p: QGParams, n_ens: int, q_init, key: int, device):
@@ -201,14 +222,15 @@ def _ensemble_start(p: QGParams, n_ens: int, q_init, key: int, device):
     is given, and one generator seeded with `key` draws every member's
     noise."""
     rdt = core.dtypes(p)[0]
-    if q_init is not None:
-        q0 = torch.as_tensor(q_init, dtype=rdt)
-        if q0.ndim == 3:
-            q0 = q0.expand((n_ens,) + tuple(q0.shape))
-    else:
-        q0 = torch.stack([set_initial_condition(p, key * 1000 + j)
-                          for j in range(n_ens)])
-    return q0, torch.Generator(device=device).manual_seed(int(key))
+    with span("sim.initial_conditions"):
+        if q_init is not None:
+            q0 = torch.as_tensor(q_init, dtype=rdt)
+            if q0.ndim == 3:
+                q0 = q0.expand((n_ens,) + tuple(q0.shape))
+        else:
+            q0 = torch.stack([set_initial_condition(p, key * 1000 + j)
+                              for j in range(n_ens)])
+        return q0, torch.Generator(device=device).manual_seed(int(key))
 
 
 def advance_run(carry, pyqg_params: QGParams, parameterization=None,
@@ -220,12 +242,21 @@ def advance_run(carry, pyqg_params: QGParams, parameterization=None,
     carry has a member axis; the carry passed in keeps its tensors. The
     carry must lie on `device` (None means CUDA)."""
     p = pyqg_params
+    steps_per_snap, _ = _snap_counts(p, sampling_freq)
+    qh = carry[0].qh
+    with span("sim.advance_run", members=qh.shape[0] if qh.ndim > 3 else 1,
+              steps=steps_per_snap * n_snaps):
+        return _advance_run(carry, p, parameterization, n_snaps,
+                            steps_per_snap, with_diags, device)
+
+
+def _advance_run(carry, p: QGParams, parameterization, n_snaps: int,
+                 steps_per_snap: int, with_diags: bool, device):
     device = resolve_device(device)
     on = carry[0].qh.device
     if on.type != device.type or device.index not in (None, on.index):
         raise ValueError(f"the carry lies on {on}, not on {device}")
     model, sampling, nsteps = _normalize_parameterization(parameterization)
-    steps_per_snap, _ = _snap_counts(p, sampling_freq)
     tc0 = carry[0].tc
     advance = _advance_program(p, model, sampling, nsteps, steps_per_snap,
                                n_snaps, with_diags)
@@ -270,15 +301,20 @@ def run_simulation(pyqg_params: QGParams, parameterization=None,
     `set_initial_condition(p, key)` unless `q_init` is given, and its noise
     generator is seeded with `key`. `device=None` means CUDA."""
     p = pyqg_params
-    device = resolve_device(device)
-    model, sampling, nsteps = _normalize_parameterization(parameterization)
     steps_per_snap, n_snaps = _snap_counts(p, sampling_freq)
-    q0 = q_init if q_init is not None else set_initial_condition(p, key)
-    program = _simulate_program(p, model, sampling, nsteps, steps_per_snap,
-                                n_snaps, with_diags)
-    snaps, diags = program(q0, key, device)
-    return _build_dataset(_to_numpy(snaps), _to_numpy(diags), p,
-                          steps_per_snap * p.dt, n_snaps)
+    with span("sim.run_simulation", members=1,
+              steps=steps_per_snap * n_snaps, key=key):
+        device = resolve_device(device)
+        model, sampling, nsteps = _normalize_parameterization(
+            parameterization)
+        with span("sim.initial_conditions"):
+            q0 = q_init if q_init is not None else \
+                set_initial_condition(p, key)
+        program = _simulate_program(p, model, sampling, nsteps,
+                                    steps_per_snap, n_snaps, with_diags)
+        snaps, diags = program(q0, key, device)
+        return _build_dataset(_to_numpy(snaps), _to_numpy(diags), p,
+                              steps_per_snap * p.dt, n_snaps)
 
 
 def run_ensemble(pyqg_params: QGParams, parameterization=None,
@@ -299,22 +335,25 @@ def run_ensemble(pyqg_params: QGParams, parameterization=None,
     generator seeded with `key` and keeps its rows, so member j of a sharded
     run draws what member j of the unsharded run draws."""
     p = pyqg_params
-    device = resolve_device(device)
-    model, sampling, nsteps = _normalize_parameterization(parameterization)
     steps_per_snap, n_snaps = _snap_counts(p, sampling_freq)
-    q0, generator = _ensemble_start(p, n_ens, q_init, key, device)
-    rows = None
-    if sharding is not None:
-        start, stop = sharding.rows(n_ens)
-        q0, rows = q0[start:stop], (n_ens, start, stop)
-    program = _simulate_program(p, model, sampling, nsteps, steps_per_snap,
-                                n_snaps, with_diags)
-    snaps, diags = program(q0, generator, device, rows)
-    if sharding is not None:
-        snaps = {k: sharding.gather(v) for k, v in snaps.items()}
-        diags = {k: sharding.gather(v) for k, v in diags.items()}
-    return _build_dataset(_to_numpy(snaps), _to_numpy(diags), p,
-                          steps_per_snap * p.dt, n_snaps, run_dim=True)
+    with span("sim.run_ensemble", members=n_ens,
+              steps=steps_per_snap * n_snaps, key=key):
+        device = resolve_device(device)
+        model, sampling, nsteps = _normalize_parameterization(
+            parameterization)
+        q0, generator = _ensemble_start(p, n_ens, q_init, key, device)
+        rows = None
+        if sharding is not None:
+            start, stop = sharding.rows(n_ens)
+            q0, rows = q0[start:stop], (n_ens, start, stop)
+        program = _simulate_program(p, model, sampling, nsteps,
+                                    steps_per_snap, n_snaps, with_diags)
+        snaps, diags = program(q0, generator, device, rows)
+        if sharding is not None:
+            snaps = {k: sharding.gather(v) for k, v in snaps.items()}
+            diags = {k: sharding.gather(v) for k, v in diags.items()}
+        return _build_dataset(_to_numpy(snaps), _to_numpy(diags), p,
+                              steps_per_snap * p.dt, n_snaps, run_dim=True)
 
 
 def run_ensemble_segmented(pyqg_params: QGParams, parameterization=None,
@@ -327,24 +366,27 @@ def run_ensemble_segmented(pyqg_params: QGParams, parameterization=None,
     host synchronisation (the snapshots' copy to the host) between them;
     equal to `run_ensemble`, since the carry is the whole state."""
     p = pyqg_params
-    device = resolve_device(device)
-    model, sampling, nsteps = _normalize_parameterization(parameterization)
     steps_per_snap, n_snaps = _snap_counts(p, sampling_freq)
-    q0, generator = _ensemble_start(p, n_ens, q_init, key, device)
-    carry = init_run_carry(p, q0, generator, model, with_diags, device)
-    bounds = np.linspace(0, n_snaps, n_segments + 1).astype(int)
-    seg_snaps, diags = [], {}
-    for m in np.diff(bounds):
-        if m == 0:
-            continue
-        advance = _advance_program(p, model, sampling, nsteps,
-                                   steps_per_snap, int(m), with_diags)
-        carry, snaps, diags = advance(carry)
-        seg_snaps.append(_to_numpy(snaps))
-    merged = {k: np.concatenate([s[k] for s in seg_snaps], axis=1)
-              for k in seg_snaps[0]}
-    return _build_dataset(merged, _to_numpy(diags), p,
-                          steps_per_snap * p.dt, n_snaps, run_dim=True)
+    with span("sim.run_ensemble_segmented", members=n_ens,
+              steps=steps_per_snap * n_snaps, key=key):
+        device = resolve_device(device)
+        model, sampling, nsteps = _normalize_parameterization(
+            parameterization)
+        q0, generator = _ensemble_start(p, n_ens, q_init, key, device)
+        carry = init_run_carry(p, q0, generator, model, with_diags, device)
+        bounds = np.linspace(0, n_snaps, n_segments + 1).astype(int)
+        seg_snaps, diags = [], {}
+        for m in np.diff(bounds):
+            if m == 0:
+                continue
+            advance = _advance_program(p, model, sampling, nsteps,
+                                       steps_per_snap, int(m), with_diags)
+            carry, snaps, diags = advance(carry)
+            seg_snaps.append(_to_numpy(snaps))
+        merged = {k: np.concatenate([s[k] for s in seg_snaps], axis=1)
+                  for k in seg_snaps[0]}
+        return _build_dataset(merged, _to_numpy(diags), p,
+                              steps_per_snap * p.dt, n_snaps, run_dim=True)
 
 
 def _forcing_program(Nc: Sequence[int], p: QGParams, sampling_freq: float,

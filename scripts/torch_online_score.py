@@ -154,14 +154,14 @@ def run_cell(spec, args, out, ref_folder, smi):
     param = None if folder is None else {
         "self": load(folder, epoch, args.device), "sampling": "constant",
         "nsteps": 1}
-    fused_conv.launches = 0
+    launches = fused_conv.launches
     t0 = time.perf_counter()
     ds = run_ensemble_segmented(p, param, n_ens=args.members,
                                 sampling_freq=ANDREW_1000_STEPS, key=key,
                                 n_segments=SEGMENTS, device=args.device)
     sync(args.device)
     seconds = time.perf_counter() - t0
-    launches = fused_conv.launches
+    launches = fused_conv.launches - launches
     cell = out / (name if key == 0 else f"{name}_key{key}")
     (cell / "online").mkdir(parents=True, exist_ok=True)
     for j in range(args.members):
