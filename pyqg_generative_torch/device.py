@@ -48,7 +48,18 @@ def exact_fp32_training():
     closures' 5x5 convolutions lose float32's precision: on an H100 a
     128 -> 64 5x5 conv at 8 x 64^2 reads 2.3e-3 from float64 in relative
     RMS, 4 -> 32 at 4 x 32^2 7.5e-4, where PyTorch's own path reads 2e-7 to
-    5e-7 (`scripts/torch_training_precision.py`; PERF.md, PR 11)."""
+    5e-7 (`scripts/torch_training_precision.py`).
+
+    cuDNN's input gradients keep float32's precision, and they replace the
+    costliest pass of PyTorch's path (a GEMM and a col2im a sample). An
+    `AndrewCNN` in training routes its convs through
+    `ml.train_conv.SplitConv2d`, which turns cuDNN back on for the input
+    gradient alone (float32, deterministic, no TF32) where its shape
+    allows, and keeps the forward and the weight and bias gradients on
+    PyTorch's path (cuDNN's forwards move a step's gradients 2.6-2.9 times
+    as far from float64). Every other conv of the step (the GAN's critic,
+    the U-Net, the bottleneck's encoder and decoder) runs PyTorch's path
+    throughout."""
     prev = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = False
     try:

@@ -34,10 +34,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..qg.grid import make_grid
+from .train_conv import split_conv2d
 
 __all__ = ["AndrewCNN", "VarCNN", "ANN", "ResUnit", "DeepInversionGenerator",
            "Downsampling", "Upsampling", "DCGANDiscriminator", "BatchNorm",
-           "fold_batchnorm", "circular_conv2d", "spectral_divergence",
+           "CircularConv2d", "fold_batchnorm", "circular_conv2d",
+           "spectral_divergence",
            "divergence_head", "dcgan_normal_init", "init_weights",
            "count_params"]
 
@@ -150,6 +152,33 @@ def circular_conv2d(x: torch.Tensor, w: torch.Tensor,
     return F.conv2d(x, w, b, stride=stride)
 
 
+class CircularConv2d(nn.Conv2d):
+    """`circular_conv2d` as a module (`nn.Conv2d` with `padding_mode=
+    "circular"`, (k-1)//2 cells each side, k odd) whose training calls
+    (train mode, gradients enabled, the weight requiring one) run as
+    `ml.train_conv.split_conv2d` on the padded input: the input gradient in
+    cuDNN where that keeps float32's precision (the per-sample col2im loop
+    of PyTorch's own path costs the most), the forward and the weight and
+    bias gradients on PyTorch's own path, since cuDNN's weight gradients
+    miss float64 by up to 2.3e-3 and its forwards move a step's gradients
+    2.6-2.9 times as far from float64 (`device.exact_fp32_training`).
+    Every other call (inference, frozen weights, `torch.no_grad`) is
+    `nn.Conv2d`'s own, and a wrapper that calls `_conv_forward` (as
+    `parallel.mesh.ColumnParallel` does) bypasses the route."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, bias: bool = True):
+        super().__init__(c_in, c_out, k, bias=bias, padding=(k - 1) // 2,
+                         padding_mode="circular")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and torch.is_grad_enabled() \
+                and self.weight.requires_grad:
+            p = self.padding[0]
+            return split_conv2d(F.pad(x, (p, p, p, p), mode="circular"),
+                                self.weight, self.bias)
+        return super().forward(x)
+
+
 def _conv_transpose_same(x: torch.Tensor, layer: nn.ConvTranspose2d,
                          stride: int) -> torch.Tensor:
     """flax `ConvTranspose(strides=stride, padding="SAME")` on NCHW x: the
@@ -197,7 +226,9 @@ class AndrewCNN(nn.Module):
     (reference tools/cnn_tools.py:125-182). Eval-mode BatchNorm uses the
     running statistics, as the twin does with `train=False`. `div=True`
     doubles the output channels and returns 10000 * their spectral
-    divergence, n_out channels. Its convs are drawn N(0, 0.02)."""
+    divergence, n_out channels. Its convs are drawn N(0, 0.02).
+
+    Its convs are `CircularConv2d`s, which train on the split route."""
 
     kernel_init = "dcgan"
 
@@ -214,11 +245,8 @@ class AndrewCNN(nn.Module):
         cins = [n_in] + chans[:-1]
         self.n_layers = len(list(zip(chans, kernels)))
         for i, (ci, co, k) in enumerate(zip(cins, chans, kernels)):
-            # circular_conv2d as a module: torch pads (k-1)//2 on each
-            # side circularly, then convolves valid
-            self.add_module(f"Conv_{i}", nn.Conv2d(
-                ci, co, k, bias=bias, padding=(k - 1) // 2,
-                padding_mode="circular"))
+            self.add_module(f"Conv_{i}", CircularConv2d(ci, co, k,
+                                                        bias=bias))
             if batch_norm and i < self.n_layers - 1:
                 self.add_module(f"BatchNorm_{i}",
                                 BatchNorm(co))

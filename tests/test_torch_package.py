@@ -68,7 +68,8 @@ def test_no_jax_imports():
                    "models/ols_model", "models/cvae_bottleneck",
                    "models/cvae_regression", "models/cgan_regression",
                    "models/mean_var_model", "models/common", "models/base",
-                   "ml/weights", "ml/nets", "ml/train", "qg/spectral",
+                   "ml/weights", "ml/nets", "ml/train", "ml/train_conv",
+                   "qg/spectral",
                    "eval/__init__", "eval/comparison", "eval/metrics",
                    "eval/forecast", "entry", "utils/checkpoints",
                    "exp/__init__", "exp/pipeline", "exp/cli", "ml/multifit",

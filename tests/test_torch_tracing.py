@@ -175,6 +175,10 @@ def test_vae_trainer_step_spans():
     profiling.clear_spans()
     trainer.step(0, trainer.batches()[0])
     recs = profiling.spans()
+    # each conv's weight gradient, on the split route, inside the backward
+    # (on the CPU the backward runs on the caller's thread)
+    wgrad = [r for r in recs if r.name == "train.conv_wgrad"]
+    recs = [r for r in recs if r.name != "train.conv_wgrad"]
     root = recs[-1]
     assert root.name == "train.step" and root.parent_id is None
     assert [(r.name, r.parent_id, r.root_id) for r in recs[:-1]] == [
@@ -182,6 +186,11 @@ def test_vae_trainer_step_spans():
         ("train.batch", "train.forward", "train.backward",
          "train.optimizer")]
     assert all(a.end_ns <= b.start_ns for a, b in zip(recs, recs[1:-1]))
+    backward = recs[2]
+    assert len(wgrad) == net.encoder.n_layers + net.decoder.n_layers
+    assert all(r.parent_id == backward.span_id
+               and backward.start_ns <= r.start_ns <= r.end_ns
+               <= backward.end_ns for r in wgrad)
 
 
 def test_timer_waits_for_the_card(monkeypatch, capsys):
@@ -252,6 +261,13 @@ CASES = {
             + [("cuLaunchKernel", 350, 351), ("cudaMemcpyAsync", 360, 361)],
             [(0, 1000)]), batches=2),
         (3 + 3) / 2),
+    "train.split_convs_per_batch": (
+        lambda mp: _ctx(_trace(
+            [("train.step", 0, 400), ("train.step", 500, 900)]
+            + [("train.conv_wgrad", t, t + 5) for t in (100, 150, 200,
+                                                        600, 650, 700)],
+            [(0, 1000)]), batches=2),
+        6 / 2),
 }
 
 
