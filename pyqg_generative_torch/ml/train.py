@@ -10,7 +10,9 @@ BatchNorm statistics live in the torch module: a train-mode forward updates
 the statistics (`ml.nets.BatchNorm`), so the twin's threaded `batch_stats`
 is the module's state. The optimizer is optax's Adam written out in torch
 (`Adam`), one tensor at a time in optax's order of operations, with a
-piecewise-constant schedule read at the optimizer's own update count; its
+piecewise-constant schedule read at the optimizer's own update count and
+the values that change from step to step held in device tensors, so that
+a CUDA graph can replay the update (`ml/train_graph.py`); its
 state is a plain dict of tensors and the count, which the checkpoint holds
 beside the module state dicts (`utils/checkpoints.py`). `fit_streaming`
 feeds the same step from `utils.native.FastLoader` through pinned buffers.
@@ -125,34 +127,86 @@ class Adam:
     b2^(count+1))) + eps), with the schedule read at the count before the
     update, as optax reads it. The state is {"count": int, "mu": {name:
     tensor}, "nu": {name: tensor}}; `step` updates parameters and state in
-    place, inside the span `train.optimizer`."""
+    place.
+
+    The values that change from step to step (the rate and both bias
+    corrections) reach the arithmetic (`update`) as 0-dim tensors on the
+    parameters' device (`scalars`), written before each update, so that a
+    CUDA graph that captured `update` replays it with the values of the
+    step it replays. Each rounds as the Python float it stands for: a CUDA
+    kernel divides a tensor by a Python float by multiplying with the
+    float's reciprocal, formed in double and rounded to the tensor's
+    precision, so on CUDA a bias correction is kept as that reciprocal and
+    multiplied by; on the CPU, which divides by the float rounded to the
+    tensor's precision, it is kept as itself and divided by. So an update
+    is bitwise the one Python floats give, on either device."""
 
     def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
         self.learning_rate = learning_rate if callable(learning_rate) \
             else (lambda count: learning_rate)
         self.b1, self.b2, self.eps = b1, b2, eps
+        self._scalars: dict = {}
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         return {"count": 0,
                 "mu": {k: torch.zeros_like(p) for k, p in params.items()},
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
+    def scalars(self, like: torch.Tensor, count: int | None = None) -> tuple:
+        """The update's (-rate, mu's bias correction, nu's) for parameters
+        like `like`: 0-dim tensors on its device in its dtype (float32 or
+        float64), the same ones for the optimizer's life. With `count`,
+        first written with that count's values, by three fills on the
+        current stream."""
+        key = (like.device, like.dtype)
+        out = self._scalars.get(key)
+        if out is None:
+            if like.dtype not in (torch.float32, torch.float64):
+                raise ValueError(f"Adam's scalars take float32 or float64 "
+                                 f"parameters, not {like.dtype}")
+            out = self._scalars[key] = tuple(
+                torch.zeros((), device=like.device, dtype=like.dtype)
+                for _ in range(3))
+        if count is not None:
+            c1 = 1 - self.b1 ** (count + 1)
+            c2 = 1 - self.b2 ** (count + 1)
+            if like.is_cuda:
+                c1, c2 = 1 / c1, 1 / c2
+            # each fill rounds its Python float to the tensor's precision
+            for t, v in zip(out, (-self.learning_rate(count), c1, c2)):
+                t.fill_(v)
+        return out
+
     @torch.no_grad()
-    def step(self, params: Mapping[str, torch.Tensor], grads, state: dict):
+    def update(self, params: Mapping[str, torch.Tensor], grads,
+               state: dict, scalars: tuple) -> None:
+        """One update's arithmetic, in place, inside the span
+        `train.optimizer`, with `scalars` as `scalars` wrote them: it reads
+        no host value that changes between steps, and leaves the count to
+        the caller."""
         b1, b2 = self.b1, self.b2
-        count = state["count"]
-        step_size = -self.learning_rate(count)
-        bc1, bc2 = 1 - b1 ** (count + 1), 1 - b2 ** (count + 1)
+        step_size, c1, c2 = scalars
         with span("train.optimizer"):
             for (name, p), g in zip(params.items(), grads):
                 mu = state["mu"][name]
                 nu = state["nu"][name]
                 mu.copy_((1 - b1) * g + b1 * mu)
                 nu.copy_((1 - b2) * (g * g) + b2 * nu)
-                update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                update = _over(mu, c1) / (torch.sqrt(_over(nu, c2))
+                                          + self.eps)
                 p.copy_(p + step_size * update)
+
+    def step(self, params: Mapping[str, torch.Tensor], grads, state: dict):
+        count = state["count"]
+        like = next(iter(params.values()))
+        self.update(params, grads, state, self.scalars(like, count))
         state["count"] = count + 1
+
+
+def _over(t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """t over the bias correction that `Adam.scalars` wrote into c."""
+    return t * c if t.is_cuda else t / c
 
 
 def multistep_adam(lr: float, num_epochs: int, steps_per_epoch: int,

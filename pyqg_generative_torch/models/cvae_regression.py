@@ -38,8 +38,9 @@ from ..device import exact_fp32, exact_fp32_training, resolve_device
 from ..ml.fused_conv import compute_dtype_of
 from ..ml.nets import AndrewCNN, init_weights
 from ..ml.train import Adam, piecewise_constant_schedule
+from ..ml.train_graph import COUNTERS, GraphedTrainStep
 from ..ml.weights import params_from_jax, params_to_jax, read_msgpack
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .base import Parameterization, prepare_PV_data, register_model, \
     save_model_args, save_variables
 from .cgan_regression import CGANRegression, GenerativeTrainer, \
@@ -49,7 +50,8 @@ from .common import bn_apply, lev_from_nhwc, \
     set_scalers, train_regression
 
 __all__ = ["CVAERegression", "make_vae_loss", "make_vae_step", "train_CVAE",
-           "VaeTrainer", "vae_eps", "vae_optimizer", "vae_params"]
+           "VaeTrainer", "vae_batch", "vae_eps", "vae_optimizer",
+           "vae_params"]
 
 
 @register_model
@@ -294,19 +296,30 @@ def make_vae_loss(net):
 def make_vae_step(net, tx: Adam):
     """step(opt_state, batch, eps) -> metrics: one VAE update on batch =
     (x, y, ymean) in train mode under `exact_fp32_training` (the body of
-    the twin's
-    `train_epoch`, :337-347)."""
+    the twin's `train_epoch`, :337-347). `step.update(opt_state, batch,
+    eps, scalars)` is the same step with Adam's scalars as the tensors
+    that `Adam.scalars` wrote, and Adam's count left to the caller: the
+    device work alone, which `VaeTrainer` captures in a CUDA graph."""
     loss_fn = make_vae_loss(net)
     params = vae_params(net)
 
-    def step(opt_state, batch, eps):
+    def run(opt_state, batch, eps, optimize):
         with exact_fp32_training():
             with span("train.forward"):
                 loss, metrics = loss_fn(*batch, eps, True)
             with span("train.backward"):
                 grads = torch.autograd.grad(loss, list(params.values()))
-            tx.step(params, grads, opt_state)
+            optimize(params, grads, opt_state)
         return {k: v.detach() for k, v in metrics.items()}
+
+    def step(opt_state, batch, eps):
+        return run(opt_state, batch, eps, tx.step)
+
+    def update(opt_state, batch, eps, scalars):
+        return run(opt_state, batch, eps, lambda params, grads, state:
+                   tx.update(params, grads, state, scalars))
+
+    step.update = update
     return step
 
 
@@ -326,12 +339,31 @@ def vae_eps(generator: torch.Generator, net, x: torch.Tensor):
                        dtype=x.dtype)
 
 
+def vae_batch(data: tuple, generator: torch.Generator, net,
+              idx: torch.Tensor) -> tuple:
+    """((x, y, ymean), eps): the rows idx of the device-resident data (X,
+    Y, the mean net's Y) and the latent's draw for them."""
+    with span("train.batch"):
+        Xd, Yd, Md = data
+        x = Xd[idx]
+        return (x, Yd[idx], Md[idx]), vae_eps(generator, net, x)
+
+
 class VaeTrainer(GenerativeTrainer):
     """The VAE's replica (twin :292-414): Adam on `vae_optimizer`'s
     schedule, fresh weights for the encoder and then the decoder where the
     model has none, one `make_vae_step` a batch on the device-resident
     `data` (X, Y, the mean net's Y), its eps from the replica's generator
-    (`vae_eps`)."""
+    (`vae_eps`).
+
+    On CUDA data a step runs through `ml.train_graph.GraphedTrainStep`: the
+    rows' gather, eps and `make_vae_step`'s update, eager at the first
+    batch shape's first step, captured at its second and replayed after,
+    bitwise the eager step; Adam's scalars are written before each step
+    and its count advanced after it. On the CPU the step is eager, and
+    counts `train.eager_steps`. The parameters, BatchNorm statistics and
+    Adam's moments are updated in place and never replaced (`load` copies
+    into them), since a graph holds their addresses."""
 
     best_file = "decoder_opt.msgpack"
 
@@ -339,21 +371,39 @@ class VaeTrainer(GenerativeTrainer):
                  learning_rate: float, key: int = 0):
         super().__init__(net, key, len(data[0]), batch_size)
         steps = int(np.ceil(self.n / batch_size))
-        tx = vae_optimizer(learning_rate, num_epochs, steps)
+        self.tx = vae_optimizer(learning_rate, num_epochs, steps)
         net._init_vae_variables(self.generator)
-        self.opt_state = tx.init(vae_params(net))
+        params = vae_params(net)
+        self.opt_state = self.tx.init(params)
+        # Adam's scalars are kept for the parameters' device and dtype
+        self._like = next(iter(params.values()))
         self.data = data
-        self.vae_step = make_vae_step(net, tx)
+        self.vae_step = make_vae_step(net, self.tx)
         self.best_template = params_to_jax(net.decoder.state_dict())
+        self.graphed = None
+        if data[0].is_cuda:
+            # the body holds the trainer's parts and not the trainer, so
+            # that dropping the trainer frees its graph and pool at once
+            tx, opt_state, vae_step = self.tx, self.opt_state, self.vae_step
+            generator, like = self.generator, self._like
+
+            def update(idx):
+                batch, eps = vae_batch(data, generator, net, idx)
+                return vae_step.update(opt_state, batch, eps,
+                                       tx.scalars(like))
+            self.graphed = GraphedTrainStep(update, (generator,))
 
     def step(self, i: int, idx: torch.Tensor) -> dict:
         with span("train.step"):
-            with span("train.batch"):
-                Xd, Yd, Md = self.data
-                x = Xd[idx]
-                batch = (x, Yd[idx], Md[idx])
-                eps = vae_eps(self.generator, self.net, x)
-            return self.vae_step(self.opt_state, batch, eps)
+            if self.graphed is None:
+                count(COUNTERS["eager_steps"])
+                batch, eps = vae_batch(self.data, self.generator, self.net,
+                                       idx)
+                return self.vae_step(self.opt_state, batch, eps)
+            self.tx.scalars(self._like, self.opt_state["count"])
+            metrics = self.graphed(idx)
+            self.opt_state["count"] += 1
+            return metrics
 
     def trained(self) -> None:
         self.net._set_vae_variables()
@@ -367,9 +417,15 @@ class VaeTrainer(GenerativeTrainer):
                 "opt": self.opt_state}
 
     def load(self, saved: dict) -> None:
+        """The saved modules and Adam state, copied into the trainer's own
+        tensors."""
         for k, m in self.net._vae_modules().items():
             m.load_state_dict(saved["modules"][k])
-        self.opt_state = saved["opt"]
+        with torch.no_grad():
+            for part in ("mu", "nu"):
+                for name, t in self.opt_state[part].items():
+                    t.copy_(saved["opt"][part][name])
+        self.opt_state["count"] = int(saved["opt"]["count"])
 
     def describe(self, row: dict) -> str:
         return f"MSE: {row['MSE']:.4g} KL: {row['loss_KL']:.4g}"

@@ -69,6 +69,7 @@ def test_no_jax_imports():
                    "models/cvae_regression", "models/cgan_regression",
                    "models/mean_var_model", "models/common", "models/base",
                    "ml/weights", "ml/nets", "ml/train", "ml/train_conv",
+                   "ml/train_graph",
                    "qg/spectral",
                    "eval/__init__", "eval/comparison", "eval/metrics",
                    "eval/forecast", "entry", "utils/checkpoints",

@@ -276,8 +276,11 @@ def test_vae_step_repeats_bitwise_on_card():
 @pytest.mark.cuda
 def test_wgrad_spans_reach_the_benchmark_trace_on_card():
     """The `train.conv_wgrad` spans, opened on the autograd engine's
-    thread, land in the benchmark's profiler trace: 16 a VAE step, which
-    `train.split_convs_per_batch` reads."""
+    thread, land in the benchmark's profiler trace: 16 a VAE step whose
+    backward runs on the host, which `train.split_convs_per_batch` reads.
+    On the card the trainer's second step is captured in a CUDA graph
+    (its backward runs once, as the capture) and the third replayed (no
+    backward on the host): 16 in the two."""
     dev = _card()
     sys.path.insert(0, str(ROOT))
     from benchmark import tracing
@@ -295,4 +298,5 @@ def test_wgrad_spans_reach_the_benchmark_trace_on_card():
         for i in (1, 2):
             trainer.step(i, perm[i])
     names = [h[0] for h in out[-1].host]
-    assert names.count("train.conv_wgrad") == 2 * 16
+    assert names.count("train.conv_wgrad") == 16
+    assert names.count("train.replay") == 2
