@@ -932,7 +932,7 @@ def graphed_vs_eager(name, model, p, graph):
         log(f"path {name}, 2 members x 20 steps, AR1({nsteps}): graphed "
             f"equals eager bitwise at every step (q, noise, diagnostics' "
             f"sums); {graph.replayed_steps - before} steps replayed from "
-            f"{len(gstep._graphs)} graphs")
+            f"{len(gstep.graphs.graphs)} graphs")
     return replayed
 
 
@@ -2146,10 +2146,15 @@ def training_step_readings(ds_train, smi):
 
     m = load_model(str(TRAIN_DIR / "vae"), device=DEV)
     tx = vae.vae_optimizer(2e-4, 2, 10)
-    vopt = tx.init(vae.vae_params(m))
+    vparams = vae.vae_params(m)
+    vopt = tx.init(vparams)
     vstep = vae.make_vae_step(m, tx)
-    readings["vae"] = _train_step_profile(
-        lambda j: vstep(vopt, batch, vae.vae_eps(g, m, x)))
+
+    def vae_step(j):
+        scalars = tx.scalars(next(iter(vparams.values())), vopt["count"])
+        vstep(vopt, batch, vae.vae_eps(g, m, x), scalars)
+        vopt["count"] += 1
+    readings["vae"] = _train_step_profile(vae_step)
 
     m = load_model(str(TRAIN_DIR / "gz"), device=DEV)
     tx = train.multistep_adam(1e-3, 2, 10)

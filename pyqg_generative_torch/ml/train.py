@@ -130,9 +130,9 @@ class Adam:
     place.
 
     The values that change from step to step (the rate and both bias
-    corrections) reach the arithmetic (`update`) as 0-dim tensors on the
+    corrections) reach the arithmetic (`step`) as 0-dim tensors on the
     parameters' device (`scalars`), written before each update, so that a
-    CUDA graph that captured `update` replays it with the values of the
+    CUDA graph that captured `step` replays it with the values of the
     step it replays. Each rounds as the Python float it stands for: a CUDA
     kernel divides a tensor by a Python float by multiplying with the
     float's reciprocal, formed in double and rounded to the tensor's
@@ -179,12 +179,17 @@ class Adam:
         return out
 
     @torch.no_grad()
-    def update(self, params: Mapping[str, torch.Tensor], grads,
-               state: dict, scalars: tuple) -> None:
-        """One update's arithmetic, in place, inside the span
-        `train.optimizer`, with `scalars` as `scalars` wrote them: it reads
-        no host value that changes between steps, and leaves the count to
-        the caller."""
+    def step(self, params: Mapping[str, torch.Tensor], grads, state: dict,
+             scalars: tuple | None = None) -> None:
+        """One update, in place, its arithmetic inside the span
+        `train.optimizer`. Given `scalars` as `scalars` wrote them, it reads
+        no host value that changes between steps and leaves the count to
+        the caller (the form a CUDA graph captures); without, it writes them
+        for the state's count and advances the count."""
+        if scalars is None:
+            count = state["count"]
+            scalars = self.scalars(next(iter(params.values())), count)
+            state["count"] = count + 1
         b1, b2 = self.b1, self.b2
         step_size, c1, c2 = scalars
         with span("train.optimizer"):
@@ -196,12 +201,6 @@ class Adam:
                 update = _over(mu, c1) / (torch.sqrt(_over(nu, c2))
                                           + self.eps)
                 p.copy_(p + step_size * update)
-
-    def step(self, params: Mapping[str, torch.Tensor], grads, state: dict):
-        count = state["count"]
-        like = next(iter(params.values()))
-        self.update(params, grads, state, self.scalars(like, count))
-        state["count"] = count + 1
 
 
 def _over(t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -18,14 +18,12 @@ its packed weights, online and offline.
 
 Training (twin :66-98, :140-176, :256-414): the encoder, an AndrewCNN from
 (x, y) to per-pixel (mu, logvar) of the 2-channel latent at the default
-widths, and the decoder as a torch module train together on the sigma-VAE
-loss (`make_vae_loss`) by `train_CVAE`, under `exact_fp32_training`; the
-latent's
-eps comes from a torch.Generator seeded with `key`, as an argument of the
-loss. After every epoch `vars_enc` and `vars_dec` are rewritten from the
-trained modules and `weights_generation` grows, so that the offline
-evaluation runs the new decoder; the best epoch's decoder is kept in
-`decoder_opt.msgpack`.
+widths, and the decoder train together on the sigma-VAE loss
+(`make_vae_loss`) by `train_CVAE`, under `exact_fp32_training`, the
+latent's eps drawn from a torch.Generator seeded with `key`. After every
+epoch `vars_enc` and `vars_dec` are rewritten from the trained modules and
+`weights_generation` grows, so that the offline evaluation runs the new
+decoder; the best epoch's decoder is kept in `decoder_opt.msgpack`.
 """
 from __future__ import annotations
 
@@ -50,8 +48,7 @@ from .common import bn_apply, lev_from_nhwc, \
     set_scalers, train_regression
 
 __all__ = ["CVAERegression", "make_vae_loss", "make_vae_step", "train_CVAE",
-           "VaeTrainer", "vae_batch", "vae_eps", "vae_optimizer",
-           "vae_params"]
+           "VaeTrainer", "vae_eps", "vae_optimizer", "vae_params"]
 
 
 @register_model
@@ -242,7 +239,6 @@ class CVAERegression(Parameterization):
     predict = CGANRegression.predict
 
 
-
 # --------------------------------------------------------------------------
 
 
@@ -294,32 +290,23 @@ def make_vae_loss(net):
 
 
 def make_vae_step(net, tx: Adam):
-    """step(opt_state, batch, eps) -> metrics: one VAE update on batch =
-    (x, y, ymean) in train mode under `exact_fp32_training` (the body of
-    the twin's `train_epoch`, :337-347). `step.update(opt_state, batch,
-    eps, scalars)` is the same step with Adam's scalars as the tensors
-    that `Adam.scalars` wrote, and Adam's count left to the caller: the
-    device work alone, which `VaeTrainer` captures in a CUDA graph."""
+    """step(opt_state, batch, eps, scalars) -> metrics: one VAE update on
+    batch = (x, y, ymean) in train mode under `exact_fp32_training` (the
+    body of the twin's `train_epoch`, :337-347), with Adam's scalars the
+    tensors that `Adam.scalars` wrote and Adam's count left to the caller:
+    the device work alone, which `VaeTrainer` captures in a CUDA graph."""
     loss_fn = make_vae_loss(net)
     params = vae_params(net)
 
-    def run(opt_state, batch, eps, optimize):
+    def step(opt_state, batch, eps, scalars):
         with exact_fp32_training():
             with span("train.forward"):
                 loss, metrics = loss_fn(*batch, eps, True)
             with span("train.backward"):
                 grads = torch.autograd.grad(loss, list(params.values()))
-            optimize(params, grads, opt_state)
+            tx.step(params, grads, opt_state, scalars)
         return {k: v.detach() for k, v in metrics.items()}
 
-    def step(opt_state, batch, eps):
-        return run(opt_state, batch, eps, tx.step)
-
-    def update(opt_state, batch, eps, scalars):
-        return run(opt_state, batch, eps, lambda params, grads, state:
-                   tx.update(params, grads, state, scalars))
-
-    step.update = update
     return step
 
 
@@ -339,31 +326,16 @@ def vae_eps(generator: torch.Generator, net, x: torch.Tensor):
                        dtype=x.dtype)
 
 
-def vae_batch(data: tuple, generator: torch.Generator, net,
-              idx: torch.Tensor) -> tuple:
-    """((x, y, ymean), eps): the rows idx of the device-resident data (X,
-    Y, the mean net's Y) and the latent's draw for them."""
-    with span("train.batch"):
-        Xd, Yd, Md = data
-        x = Xd[idx]
-        return (x, Yd[idx], Md[idx]), vae_eps(generator, net, x)
-
-
 class VaeTrainer(GenerativeTrainer):
     """The VAE's replica (twin :292-414): Adam on `vae_optimizer`'s
     schedule, fresh weights for the encoder and then the decoder where the
     model has none, one `make_vae_step` a batch on the device-resident
-    `data` (X, Y, the mean net's Y), its eps from the replica's generator
-    (`vae_eps`).
-
-    On CUDA data a step runs through `ml.train_graph.GraphedTrainStep`: the
-    rows' gather, eps and `make_vae_step`'s update, eager at the first
-    batch shape's first step, captured at its second and replayed after,
-    bitwise the eager step; Adam's scalars are written before each step
-    and its count advanced after it. On the CPU the step is eager, and
-    counts `train.eager_steps`. The parameters, BatchNorm statistics and
-    Adam's moments are updated in place and never replaced (`load` copies
-    into them), since a graph holds their addresses."""
+    `data` (X, Y, the mean net's Y), its eps from the replica's generator.
+    A step writes Adam's scalars, runs `body` (the rows' gather, eps and
+    `make_vae_step`) through `GraphedTrainStep` on CUDA data, or eagerly,
+    counting `train.eager_steps`, on the CPU, and advances Adam's count.
+    The parameters, BatchNorm statistics and Adam's moments are never
+    replaced (`load` copies into them), since a graph holds their addresses."""
 
     best_file = "decoder_opt.msgpack"
 
@@ -377,31 +349,30 @@ class VaeTrainer(GenerativeTrainer):
         self.opt_state = self.tx.init(params)
         # Adam's scalars are kept for the parameters' device and dtype
         self._like = next(iter(params.values()))
-        self.data = data
-        self.vae_step = make_vae_step(net, self.tx)
         self.best_template = params_to_jax(net.decoder.state_dict())
-        self.graphed = None
-        if data[0].is_cuda:
-            # the body holds the trainer's parts and not the trainer, so
-            # that dropping the trainer frees its graph and pool at once
-            tx, opt_state, vae_step = self.tx, self.opt_state, self.vae_step
-            generator, like = self.generator, self._like
+        # the body holds the trainer's parts and not the trainer, so that
+        # dropping the trainer frees its graph and pool at once
+        tx, opt_state, vae_step = self.tx, self.opt_state, \
+            make_vae_step(net, self.tx)
+        generator, like = self.generator, self._like
 
-            def update(idx):
-                batch, eps = vae_batch(data, generator, net, idx)
-                return vae_step.update(opt_state, batch, eps,
-                                       tx.scalars(like))
-            self.graphed = GraphedTrainStep(update, (generator,))
+        def body(idx):
+            with span("train.batch"):  # the rows idx of X, Y, ymean
+                batch = tuple(t[idx] for t in data)
+                eps = vae_eps(generator, net, batch[0])
+            return vae_step(opt_state, batch, eps, tx.scalars(like))
+        self.body = body
+        self.graphed = GraphedTrainStep(body, (generator,)) \
+            if data[0].is_cuda else None
 
     def step(self, i: int, idx: torch.Tensor) -> dict:
         with span("train.step"):
+            self.tx.scalars(self._like, self.opt_state["count"])
             if self.graphed is None:
                 count(COUNTERS["eager_steps"])
-                batch, eps = vae_batch(self.data, self.generator, self.net,
-                                       idx)
-                return self.vae_step(self.opt_state, batch, eps)
-            self.tx.scalars(self._like, self.opt_state["count"])
-            metrics = self.graphed(idx)
+                metrics = self.body(idx)
+            else:
+                metrics = self.graphed(idx)
             self.opt_state["count"] += 1
             return metrics
 

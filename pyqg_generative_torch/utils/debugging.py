@@ -9,7 +9,7 @@ first operator whose output is not finite; autograd's anomaly mode does the
 same for the backward pass. A check reads the device, which a CUDA graph capture cannot,
 so while the context is open `sim.graph.GraphedStep` and
 `ml.train_graph.GraphedTrainStep` step eagerly, neither capturing nor
-replaying. A kernel of `csrc/` writes its output through its
+replaying (`utils/step_graphs.py`). A kernel of `csrc/` writes its output through its
 wrapper, out of the dispatcher's sight: a non-finite value it makes is
 named at the first operator that reads it. `first_bad_step` runs over the
 port's `init_run_carry` and `advance_run`.

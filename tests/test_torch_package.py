@@ -75,6 +75,7 @@ def test_no_jax_imports():
                    "eval/forecast", "entry", "utils/checkpoints",
                    "exp/__init__", "exp/pipeline", "exp/cli", "ml/multifit",
                    "utils/native", "utils/debugging", "utils/profiling",
+                   "utils/step_graphs",
                    "utils/plot", "utils/__init__", "parallel/__init__",
                    "parallel/mesh", "parallel/sweep", "parallel/spawn",
                    "parallel/dryrun"):

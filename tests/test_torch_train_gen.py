@@ -206,10 +206,12 @@ def test_vae_loss_step_is_the_twins(bottleneck):
     jparams, jbs, jopt, jm, eps = jstep(params, bstats,
                                         jax.random.PRNGKey(7), x, y, ymean)
     tx = tt.Adam(2e-4)
-    opt = tx.init(tvae.vae_params(port))
+    vparams = tvae.vae_params(port)
+    opt = tx.init(vparams)
     m = tvae.make_vae_step(port, tx)(
         opt, tuple(torch.tensor(a) for a in (x, y, ymean)),
-        torch.tensor(np.asarray(eps)))
+        torch.tensor(np.asarray(eps)),
+        tx.scalars(next(iter(vparams.values())), 0))
     assert sorted(m) == sorted(jm)
     for k in jm:
         np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-8,

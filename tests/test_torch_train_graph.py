@@ -1,35 +1,48 @@
 """The VAE's training step replayed from a CUDA graph
-(`ml/train_graph.py::GraphedTrainStep` behind `VaeTrainer.step`), and
-Adam's scalars as device tensors (`ml/train.py::Adam`).
+(`ml/train_graph.py::GraphedTrainStep` behind `VaeTrainer.step`), the
+capture-and-replay core under it and under the online step
+(`utils/step_graphs.py::StepGraphs`), and Adam's scalars as device tensors
+(`ml/train.py::Adam`).
 
-On the CPU: a `VaeTrainer` steps eagerly (the counters read eager steps
-only) and hands out fresh metrics; `load` copies into the trainer's own
-tensors; Adam with its scalars as tensors is bitwise the update written
-with Python floats; the graphed step refuses CPU inputs; the benchmark's
-`train.replayed_share` reader on hand-built traces. On the card (imports
-no jax): python -m pytest tests/test_torch_train_graph.py -m cuda
---noconftest. There, at the `vae64_train` cell's shapes (batch 64 at 64^2,
-published widths, fresh weights from one seed), 12 graphed steps across an
-epoch's end are bitwise an eager trainer's whose Adam is written with
-Python floats, a carry()/load() round trip between replays stays bitwise,
-the bottleneck VAE's step is bitwise too, Adam's tensors are bitwise
-Python floats at parameters small enough to show an update's last bit,
-and a capture that meets a host read raises.
+On the CPU: the core's sequence of eager steps, captures and replays, its
+counters and spans (its CUDA calls stood in for); a `VaeTrainer` steps
+eagerly (the counters read eager steps only) and hands out fresh metrics;
+`load` copies into the trainer's own tensors; Adam with its scalars as
+tensors is bitwise the update written with Python floats; both graphed
+steps refuse CPU inputs; the benchmark's `train.replayed_share` reader on
+hand-built traces. On the card (imports no jax): python -m pytest
+tests/test_torch_train_graph.py -m cuda --noconftest. There, at the
+`vae64_train` cell's shapes (batch 64 at 64^2, published widths, fresh
+weights from one seed), 12 graphed steps across an epoch's end are bitwise
+an eager step written out in this file (`make_vae_loss`,
+`torch.autograd.grad`, Adam with Python floats) over a twin trainer's
+modules and state, a carry()/load() round trip between replays stays
+bitwise, the bottleneck VAE's step is bitwise too, Adam's tensors are
+bitwise Python floats at parameters small enough to show an update's last
+bit, and a capture that meets a host read raises.
 """
+import contextlib
 import subprocess
 import sys
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
+from pyqg_generative_torch.device import exact_fp32_training
 from pyqg_generative_torch.ml import nets as tnets
 from pyqg_generative_torch.ml import train as tt
 from pyqg_generative_torch.ml.train_graph import COUNTERS, GraphedTrainStep
 from pyqg_generative_torch.models import CVAEBottleneck, CVAERegression
-from pyqg_generative_torch.models.cvae_regression import VaeTrainer
-from pyqg_generative_torch.utils import profiling
+from pyqg_generative_torch.models.cvae_regression import VaeTrainer, \
+    make_vae_loss, vae_eps, vae_params
+from pyqg_generative_torch.qg.params import QGParams
+from pyqg_generative_torch.sim import init_run_carry
+from pyqg_generative_torch.sim.graph import GraphedStep
+from pyqg_generative_torch.utils import debugging, profiling
+from pyqg_generative_torch.utils.step_graphs import StepGraphs
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -105,7 +118,7 @@ def test_load_copies_into_the_trainers_tensors():
 
 def _python_float_adam(tx, params, grads, state):
     """Adam's update as written with Python floats (the arithmetic that
-    `Adam.update` keeps bitwise)."""
+    `Adam.step` keeps bitwise)."""
     b1, b2 = tx.b1, tx.b2
     count = state["count"]
     step_size = -tx.learning_rate(count)
@@ -148,10 +161,131 @@ def test_adam_scalars_as_tensors_are_bitwise_python_floats(device, dtype):
     assert sa["count"] == sb["count"] == 30
 
 
-def test_graphed_step_needs_cuda_inputs():
-    step = GraphedTrainStep(lambda x: {"s": x.sum()})
+def _online_step_on_cpu():
+    p = QGParams(nx=16)
+    return GraphedStep(p, with_diags=False), (init_run_carry(
+        p, np.zeros((1, 2, 16, 16)), 0, with_diags=False, device="cpu"),)
+
+
+STEPS_ON_CPU = {
+    "GraphedTrainStep": lambda: (GraphedTrainStep(lambda x: {"s": x.sum()}),
+                                 (torch.zeros(3),)),
+    "GraphedStep": _online_step_on_cpu,
+}
+
+
+@pytest.mark.parametrize("wrapper", sorted(STEPS_ON_CPU))
+def test_graphed_step_needs_cuda_inputs(wrapper):
+    step, inputs = STEPS_ON_CPU[wrapper]()
     with pytest.raises(ValueError, match="CUDA"):
-        step(torch.zeros(3))
+        step(*inputs)
+
+
+class _Graph:
+    """Stands in for torch.cuda.CUDAGraph: without keep_graph, instantiated
+    at the capture's end, as CUDA's is."""
+    made: list = []
+
+    def __init__(self, keep_graph=False):
+        self.keep, self.generators, self.replays = keep_graph, [], 0
+        self.ready = self.captured = False
+        _Graph.made.append(self)
+
+    def register_generator_state(self, generator):
+        self.generators.append(generator)
+
+    def instantiate(self):
+        assert self.keep and self.captured and not self.ready
+        self.ready = True
+
+    def replay(self):
+        assert self.ready
+        self.replays += 1
+
+
+@contextlib.contextmanager
+def _capturing(graph, pool=None, stream=None):
+    assert pool == "pool" and not graph.captured
+    yield
+    graph.captured, graph.ready = True, not graph.keep
+
+
+# warm-up, then each call's key ("!" runs it under debug_nans; "reset"
+# resets) and how it runs: Eager, Captured (and replayed) or Replayed
+CORE = {
+    "warm-up 3 across two keys": (3, "a:E b:E a:E b:C a:C b:R a:R b:R"),
+    "warm-up 1": (1, "a:E a:C a:R b:E b:C b:R"),
+    "debug_nans forces eager": (1, "a:E !a:E a:C !a:E a:R"),
+    "reset": (1, "a:E a:C reset a:E a:C a:R"),
+}
+
+
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("case", sorted(CORE))
+def test_step_graphs_sequence(case, checked, monkeypatch):
+    """`StepGraphs.run`'s eager steps, captures and replays for a sequence
+    of keys, its counters (a capture counts as captured and as replayed,
+    so eager + replayed are the calls) and spans (none on a replay), its
+    generators registered with every graph, what a graph keeps (the body's
+    arguments, tensors cloned, and its output), and `on_capture`, which
+    alone keeps the graph and runs once a capture with the counters from
+    before it."""
+    monkeypatch.setattr(_Graph, "made", [])
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(torch.cuda, "graph", _capturing)
+    warmup, calls = CORE[case]
+    generator = torch.Generator()
+    checks = []
+
+    def on_capture(g, before):
+        assert g.graph.ready and g not in core.graphs.values()
+        checks.append((g, before))
+    core = StepGraphs("core_test", warmup, (generator,),
+                      on_capture if checked else None)
+    names = {k: f"core_test.{k}" for k in ("eager_steps", "captured_steps",
+                                          "replayed_steps")}
+    before = profiling.counters()
+    profiling.clear_spans()
+    got, ran = [], []
+
+    def body(k, x):
+        ran.append(k)
+        return "E" if _Graph.made == [] or _Graph.made[-1].captured \
+            else k.upper()
+
+    def replay(g, k, x):
+        assert g.inputs[0] == k and g.out == k.upper()
+        assert torch.equal(g.inputs[1], x) and g.inputs[1] is not x
+        g.graph.replay()
+        return "C" if g.graph.replays == 1 else "R"
+    for call in calls.split():
+        if call == "reset":
+            core.reset()
+            got.append(call)
+            continue
+        key = call[:-2].lstrip("!")
+        with debugging.debug_nans() if call.startswith("!") \
+                else contextlib.nullcontext():
+            how = core.run(key, body, (key, torch.ones(2)), replay)
+        got.append(f"{call[:-2]}:{how}")
+    assert " ".join(got) == calls
+    n = {how: sum(c.endswith(how) for c in got) for how in "ECR"}
+    after = profiling.counters()
+    delta = {k: after[v] - before.get(v, 0) for k, v in names.items()}
+    assert delta == {"eager_steps": n["E"], "captured_steps": n["C"],
+                     "replayed_steps": n["C"] + n["R"]}
+    assert len(ran) == n["E"] + n["C"]
+    spans = [s.name for s in profiling.spans()]
+    assert sorted(spans) == sorted(
+        ["core_test.eager"] * n["E"] + ["core_test.capture"] * n["C"]
+        + ["core_test.reset"] * calls.split().count("reset"))
+    assert len(_Graph.made) == n["C"]
+    assert all(g.generators == [generator] and g.keep == checked
+               for g in _Graph.made)
+    assert sum(g.replays for g in _Graph.made) == n["C"] + n["R"]
+    assert [g.graph for g, _ in checks] == (_Graph.made if checked else [])
+    assert all(isinstance(b, dict) for _, b in checks)
 
 
 def _trace(host):
@@ -193,25 +327,44 @@ def _state(trainer) -> dict:
     return out
 
 
-def _cell_trainer(dev, n, key=2147500111):
-    """The cell's sigma-VAE (published widths, 64^2) from fresh weights
-    drawn from `key`, on n standard normal samples of its own."""
+def _cell_data(dev, n):
+    """n standard normal samples of the cell's (x, y) at 64^2, ymean 0."""
     g = torch.Generator(device=dev).manual_seed(7)
     data = tuple(torch.randn((n, 64, 64, 2), generator=g, device=dev)
                  for _ in range(2))
-    net = CVAERegression(folder=MISSING, device=dev)
-    return VaeTrainer(net, data + (torch.zeros_like(data[1]),), 200, 64,
-                      2e-4, key=key)
+    return data + (torch.zeros_like(data[1]),)
 
 
-def _eager_with_python_floats(trainer):
-    """The trainer stepped eagerly, its Adam written with Python floats:
-    the arithmetic of the eager step before Adam's scalars were tensors."""
-    trainer.graphed = None
-    tx = trainer.tx
-    tx.step = lambda params, grads, state: _python_float_adam(
-        tx, params, grads, state)
-    return trainer
+def _cell_trainer(data, key=2147500111):
+    """The cell's sigma-VAE (published widths, 64^2) from fresh weights
+    drawn from `key`, on `data`."""
+    net = CVAERegression(folder=MISSING, device=data[0].device)
+    return VaeTrainer(net, data, 200, 64, 2e-4, key=key)
+
+
+class _Eager:
+    """A VAE step written out here, on a trainer's modules, Adam state,
+    schedule and generator and on its data, apart from `VaeTrainer.step`,
+    `make_vae_step` and `Adam.step`: `make_vae_loss` in train mode,
+    `torch.autograd.grad` and Adam with Python floats, under
+    `exact_fp32_training` as the trainer's step runs."""
+
+    def __init__(self, trainer, data):
+        self.trainer, self.data = trainer, data
+        self.loss_fn = make_vae_loss(trainer.net)
+        self.params = vae_params(trainer.net)
+        self.opt_state = trainer.opt_state
+        self.batches = trainer.batches
+
+    def step(self, i, idx):
+        t = self.trainer
+        batch = tuple(d[idx] for d in self.data)
+        eps = vae_eps(t.generator, t.net, batch[0])
+        with exact_fp32_training():
+            loss, metrics = self.loss_fn(*batch, eps, True)
+            grads = torch.autograd.grad(loss, list(self.params.values()))
+            _python_float_adam(t.tx, self.params, grads, t.opt_state)
+        return {k: v.detach() for k, v in metrics.items()}
 
 
 def _assert_same(a: dict, b: dict, what):
@@ -223,17 +376,18 @@ def _assert_same(a: dict, b: dict, what):
 @pytest.mark.cuda
 def test_graphed_vae_steps_are_bitwise_the_eager_ones_on_card():
     """12 steps (6 batches an epoch, so an epoch's end at step 6) of the
-    graphed trainer and of an eager one with Adam's Python floats, from
-    the same weights and rows:
-    every metric, parameter, BatchNorm statistic and Adam moment bitwise at
-    every step; 1 eager, 1 captured and 10 replayed steps; each step's
-    metrics unchanged by the next step."""
+    graphed trainer and of `_Eager` on a twin trainer, from the same
+    weights and rows: every metric, parameter, BatchNorm statistic and Adam
+    moment bitwise at every step; 1 eager, 1 captured and 11 replayed
+    steps (the capture's replay counted); each step's metrics unchanged by
+    the next step."""
     dev = _device("cuda")
-    n = 5 * 64 + 10
-    graphed = _cell_trainer(dev, n)
-    eager = _eager_with_python_floats(_cell_trainer(dev, n))
+    data = _cell_data(dev, 5 * 64 + 10)
+    graphed = _cell_trainer(data)
+    twin = _cell_trainer(data)
+    eager = _Eager(twin, data)
     assert graphed.graphed is not None
-    _assert_same(_state(graphed), _state(eager), "fresh weights")
+    _assert_same(_state(graphed), _state(twin), "fresh weights")
     profiling.reset_counters()
     perms, rows, kept = [graphed.batches(), graphed.batches()], [], None
     for perm in perms:
@@ -246,7 +400,7 @@ def test_graphed_vae_steps_are_bitwise_the_eager_ones_on_card():
             rows.append((m, graphed.opt_state["count"], _state(graphed)))
     assert len(rows) == 12
     assert _counts() == {"eager_steps": 1, "captured_steps": 1,
-                         "replayed_steps": 10}
+                         "replayed_steps": 11}
     i = 0
     for perm in perms:
         assert torch.equal(eager.batches(), perm)
@@ -256,7 +410,7 @@ def test_graphed_vae_steps_are_bitwise_the_eager_ones_on_card():
             want_m, want_count, want_state = rows[i]
             _assert_same(m, want_m, f"metrics, step {i}")
             assert eager.opt_state["count"] == want_count == i + 1
-            _assert_same(_state(eager), want_state, f"state, step {i}")
+            _assert_same(_state(twin), want_state, f"state, step {i}")
             i += 1
 
 
@@ -264,12 +418,12 @@ def test_graphed_vae_steps_are_bitwise_the_eager_ones_on_card():
 def test_carry_and_load_between_replays_stay_bitwise_on_card():
     """A graphed trainer saves its carry and generator after 6 steps, runs
     2 more, loads them back and runs the last 6 again (replays on the
-    copied-in tensors): bitwise an eager trainer's 12 steps, its Adam
-    written with Python floats."""
+    copied-in tensors): bitwise 12 steps of `_Eager` on a twin trainer."""
     dev = _device("cuda")
-    n = 6 * 64
-    graphed = _cell_trainer(dev, n)
-    eager = _eager_with_python_floats(_cell_trainer(dev, n))
+    data = _cell_data(dev, 6 * 64)
+    graphed = _cell_trainer(data)
+    twin = _cell_trainer(data)
+    eager = _Eager(twin, data)
     perms = [graphed.batches(), graphed.batches()]
     idx = [p for perm in perms for p in perm]
     for i in range(6):
@@ -294,15 +448,15 @@ def test_carry_and_load_between_replays_stay_bitwise_on_card():
     for i in range(12):
         eager.step(i, idx[i])
     torch.cuda.synchronize()
-    _assert_same(_state(graphed), _state(eager), "after the round trip")
+    _assert_same(_state(graphed), _state(twin), "after the round trip")
     assert graphed.opt_state["count"] == eager.opt_state["count"] == 12
 
 
 @pytest.mark.cuda
 def test_graphed_bottleneck_vae_steps_are_bitwise_on_card():
     """The bottleneck VAE (strided encoder, dense and transposed convs in
-    its deep decoder) at 32^2: 5 graphed steps bitwise 5 eager ones, whose
-    Adam is written with Python floats."""
+    its deep decoder) at 32^2: 5 graphed steps (1 eager, 1 captured, 4
+    replayed) bitwise 5 of `_Eager` on a twin trainer."""
     dev = _device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     data = tuple(torch.randn((96, 32, 32, 2), generator=g, device=dev)
@@ -312,7 +466,8 @@ def test_graphed_bottleneck_vae_steps_are_bitwise_on_card():
         net = CVAEBottleneck(regression="None", nx=32, folder=MISSING,
                              deep_latent=10, device=dev)
         return VaeTrainer(net, data, 2, 32, 2e-4, key=5)
-    graphed, eager = trainer(), _eager_with_python_floats(trainer())
+    graphed, twin = trainer(), trainer()
+    eager = _Eager(twin, data)
     profiling.reset_counters()
     perm = graphed.batches()
     assert torch.equal(perm, eager.batches())
@@ -321,9 +476,9 @@ def test_graphed_bottleneck_vae_steps_are_bitwise_on_card():
         b = eager.step(i, perm[i % len(perm)])
         _assert_same(a, b, f"metrics, step {i}")
     torch.cuda.synchronize()
-    _assert_same(_state(graphed), _state(eager), "state")
-    assert _counts() == {"eager_steps": 6, "captured_steps": 1,
-                         "replayed_steps": 3}
+    _assert_same(_state(graphed), _state(twin), "state")
+    assert _counts() == {"eager_steps": 1, "captured_steps": 1,
+                         "replayed_steps": 4}
 
 
 HOST_READ = """
