@@ -1,9 +1,38 @@
-"""Native C++ fastloader: build, correctness vs python fallback."""
+"""Native C++ fastloader: build, correctness vs python fallback.
+
+The native loader's producer threads can deadlock (the slot race in
+pyqg_generative_tpu/native/fastloader.cpp, ROADMAP queue 3 item 1), so every
+test that starts them runs the loader in a child process under `LIMIT`
+(conftest's `run_in_child`) and checks the batches it returns here. A hang
+fails that test alone."""
+import json
+
 import numpy as np
 import pytest
 
 from pyqg_generative_tpu.utils.native import (FastLoader, build_native,
                                               write_sample_store)
+
+LIMIT = 60.0  # seconds a child's loader run may take before it counts as hung
+
+# FastLoader(folder, **kw) in the child; every batch of each seed's epoch
+EPOCHS = """
+import json, sys
+from pyqg_generative_tpu.utils.native import FastLoader
+folder, kw, seeds = sys.argv[2], json.loads(sys.argv[3]), json.loads(sys.argv[4])
+fl = FastLoader(folder, **kw)
+result = {"native": fl.native,
+          "epochs": [list(fl.epoch(seed=s)) for s in seeds]}
+fl.close()
+"""
+
+
+def native_epochs(run_in_child, folder, seeds, **kw):
+    """(fl.native, [batches of each seed's epoch]) of FastLoader(folder, **kw),
+    run in a child under LIMIT."""
+    out = run_in_child(EPOCHS, folder, json.dumps(kw), json.dumps(seeds),
+                       limit=LIMIT)
+    return out["native"], out["epochs"]
 
 
 @pytest.fixture(scope="module")
@@ -23,29 +52,28 @@ def test_native_builds():
     assert build_native() is not None
 
 
-def test_native_loader_covers_all_samples(store):
+def test_native_loader_covers_all_samples(store, run_in_child):
     folder, arrays = store
-    fl = FastLoader(folder, batch_size=16)
-    assert fl.native, "native library should be active"
+    native, (epoch,) = native_epochs(run_in_child, folder, [1], batch_size=16)
+    assert native, "native library should be active"
     seen = []
-    for batch in fl.epoch(seed=1):
+    for batch in epoch:
         assert batch["q"].shape == (16, 2, 8, 8)
         assert batch["S"].shape == (16, 2, 8, 8)
         seen.extend(batch["q"][:, 0, 0, 0].astype(int).tolist())
     n = arrays["q"].shape[0]
     assert set(seen) == set(range(n))
-    fl.close()
 
 
-def test_native_batches_match_store_content(store):
+def test_native_batches_match_store_content(store, run_in_child):
     folder, arrays = store
-    fl = FastLoader(folder, batch_size=8, drop_last=True)
-    for batch in fl.epoch(seed=2):
+    _, (epoch,) = native_epochs(run_in_child, folder, [2], batch_size=8,
+                                drop_last=True)
+    for batch in epoch:
         ids = batch["q"][:, 0, 0, 0].astype(int)
         np.testing.assert_allclose(batch["S"], arrays["S"][ids], rtol=0)
         np.testing.assert_allclose(batch["q"][:, 1:], arrays["q"][ids, 1:],
                                    rtol=0)
-    fl.close()
 
 
 def test_python_fallback_equivalent_semantics(store):
@@ -59,10 +87,11 @@ def test_python_fallback_equivalent_semantics(store):
     assert set(seen) == set(range(arrays["q"].shape[0]))
 
 
-def test_epochs_reshuffle(store):
+def test_epochs_reshuffle(store, run_in_child):
     folder, _ = store
-    fl = FastLoader(folder, batch_size=103, drop_last=True)
-    e1 = next(iter(fl.epoch(seed=1)))["q"][:, 0, 0, 0]
-    e2 = next(iter(fl.epoch(seed=2)))["q"][:, 0, 0, 0]
+    # one batch an epoch: each epoch's first batch is all of it
+    _, (b1, b2) = native_epochs(run_in_child, folder, [1, 2], batch_size=103,
+                                drop_last=True)
+    e1 = b1[0]["q"][:, 0, 0, 0]
+    e2 = b2[0]["q"][:, 0, 0, 0]
     assert not np.array_equal(e1, e2)
-    fl.close()
