@@ -2,10 +2,6 @@
 initializes, and enable x64 so the solver can be validated in double
 precision (the reference numerics are float64 pyqg)."""
 import os
-import pathlib
-import pickle
-import subprocess
-import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 flags = os.environ.get("XLA_FLAGS", "")
@@ -25,51 +21,6 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-
-# appended to a child's code: hands the parent what the code left in `result`
-_GIVE = """
-import pickle as _pickle, sys as _sys
-with open(_sys.argv[1], "wb") as _f:
-    _pickle.dump(result, _f)
-"""
-
-
 @pytest.fixture()
 def rng():
     return np.random.default_rng(1234)
-
-
-@pytest.fixture()
-def run_in_child(tmp_path):
-    """run(code, *args, limit) runs `code` in a fresh Python (this
-    environment, JAX_PLATFORMS=cpu, the repo root on PYTHONPATH) and returns
-    the object the code leaves in `result`. The code reads `args`, as
-    strings, in `sys.argv[2:]`.
-
-    For the reference's native loader, whose producer threads can deadlock
-    (ROADMAP queue 3 item 1): past `limit` seconds the child is killed and
-    reaped, with its threads, and the test fails naming that race, so a
-    hang costs one test and not the run. A thread could not be killed:
-    it would stay in the worker, under the loader's later `fl_close`. A
-    child that exits non-zero fails the test with its stderr."""
-    def run(code, *args, limit):
-        out = tmp_path / "child_result.pkl"
-        path = filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])
-        env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   PYTHONPATH=os.pathsep.join(path))
-        try:
-            done = subprocess.run(
-                [sys.executable, "-c", code + _GIVE, str(out), *map(str, args)],
-                env=env, capture_output=True, text=True, timeout=limit)
-        except subprocess.TimeoutExpired:
-            pytest.fail(f"the reference's native loader did not finish "
-                        f"within {limit} s: the slot race in pyqg_generative_"
-                        f"tpu/native/fastloader.cpp (ROADMAP queue 3 item 1)",
-                        pytrace=False)
-        if done.returncode:
-            pytest.fail(f"the child exited with {done.returncode}:\n"
-                        f"{done.stderr}", pytrace=False)
-        with open(out, "rb") as f:
-            return pickle.load(f)
-    return run

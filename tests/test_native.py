@@ -3,36 +3,31 @@
 The native loader's producer threads can deadlock (the slot race in
 pyqg_generative_tpu/native/fastloader.cpp, ROADMAP queue 3 item 1), so every
 test that starts them runs the loader in a child process under `LIMIT`
-(conftest's `run_in_child`) and checks the batches it returns here. A hang
+(`child_limit.run_in_child`) and checks the batches it returns here. A hang
 fails that test alone."""
-import json
-
 import numpy as np
 import pytest
 
+from child_limit import run_in_child
 from pyqg_generative_tpu.utils.native import (FastLoader, build_native,
                                               write_sample_store)
 
 LIMIT = 60.0  # seconds a child's loader run may take before it counts as hung
 
-# FastLoader(folder, **kw) in the child; every batch of each seed's epoch
-EPOCHS = """
-import json, sys
-from pyqg_generative_tpu.utils.native import FastLoader
-folder, kw, seeds = sys.argv[2], json.loads(sys.argv[3]), json.loads(sys.argv[4])
-fl = FastLoader(folder, **kw)
-result = {"native": fl.native,
-          "epochs": [list(fl.epoch(seed=s)) for s in seeds]}
-fl.close()
-"""
+
+def loader_epochs(folder, seeds, kw):
+    """fl.native and every batch of each seed's epoch of FastLoader(folder,
+    **kw): what a test's child runs."""
+    fl = FastLoader(folder, **kw)
+    result = fl.native, [list(fl.epoch(seed=s)) for s in seeds]
+    fl.close()
+    return result
 
 
-def native_epochs(run_in_child, folder, seeds, **kw):
-    """(fl.native, [batches of each seed's epoch]) of FastLoader(folder, **kw),
-    run in a child under LIMIT."""
-    out = run_in_child(EPOCHS, folder, json.dumps(kw), json.dumps(seeds),
-                       limit=LIMIT)
-    return out["native"], out["epochs"]
+def native_epochs(tmp_path, folder, seeds, **kw):
+    """loader_epochs(folder, seeds, kw) in a child under LIMIT."""
+    return run_in_child(loader_epochs, folder, seeds, kw, out=tmp_path,
+                        limit=LIMIT)
 
 
 @pytest.fixture(scope="module")
@@ -52,9 +47,9 @@ def test_native_builds():
     assert build_native() is not None
 
 
-def test_native_loader_covers_all_samples(store, run_in_child):
+def test_native_loader_covers_all_samples(store, tmp_path):
     folder, arrays = store
-    native, (epoch,) = native_epochs(run_in_child, folder, [1], batch_size=16)
+    native, (epoch,) = native_epochs(tmp_path, folder, [1], batch_size=16)
     assert native, "native library should be active"
     seen = []
     for batch in epoch:
@@ -65,9 +60,9 @@ def test_native_loader_covers_all_samples(store, run_in_child):
     assert set(seen) == set(range(n))
 
 
-def test_native_batches_match_store_content(store, run_in_child):
+def test_native_batches_match_store_content(store, tmp_path):
     folder, arrays = store
-    _, (epoch,) = native_epochs(run_in_child, folder, [2], batch_size=8,
+    _, (epoch,) = native_epochs(tmp_path, folder, [2], batch_size=8,
                                 drop_last=True)
     for batch in epoch:
         ids = batch["q"][:, 0, 0, 0].astype(int)
@@ -87,10 +82,10 @@ def test_python_fallback_equivalent_semantics(store):
     assert set(seen) == set(range(arrays["q"].shape[0]))
 
 
-def test_epochs_reshuffle(store, run_in_child):
+def test_epochs_reshuffle(store, tmp_path):
     folder, _ = store
     # one batch an epoch: each epoch's first batch is all of it
-    _, (b1, b2) = native_epochs(run_in_child, folder, [1, 2], batch_size=103,
+    _, (b1, b2) = native_epochs(tmp_path, folder, [1, 2], batch_size=103,
                                 drop_last=True)
     e1 = b1[0]["q"][:, 0, 0, 0]
     e2 = b2[0]["q"][:, 0, 0, 0]
