@@ -1927,8 +1927,9 @@ def card_vs_cpu_steps(smi):
                        "D": txD.init(named_params(m.D))}
                 grads = {}
                 metrics = gan.make_gan_batch_step(m, txG, txD)(
-                    opt, batch, 0, (t(z[0]), t(z[1]), t(eps_gp),
-                                    torch.tensor(True, device=dev)), grads)
+                    opt, batch, True, (t(z[0]), t(z[1]), t(eps_gp),
+                                       torch.tensor(True, device=dev)),
+                    grads=grads)
                 flat = {f"{k}.{n}": v for k in ("D", "G")
                         for n, v in grads[k].items()}
             else:
@@ -2142,7 +2143,7 @@ def training_step_readings(ds_train, smi):
            "D": txD.init(train.named_params(m.D))}
     gstep = gan.make_gan_batch_step(m, txG, txD)
     readings["gan"] = _train_step_profile(
-        lambda j: gstep(opt, batch, j % 5, gan.gan_draws(g, x, 2)))
+        lambda j: gstep(opt, batch, j % 5 == 0, gan.gan_draws(g, x, 2)))
 
     m = load_model(str(TRAIN_DIR / "vae"), device=DEV)
     tx = vae.vae_optimizer(2e-4, 2, 10)

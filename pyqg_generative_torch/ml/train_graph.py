@@ -1,9 +1,10 @@
-"""A training step captured as a CUDA graph and replayed.
+"""A training step captured as CUDA graphs and replayed.
 
 A sigma-VAE batch of 64 at 64^2 is 8,318 kernels (the forward's and the
 weight gradient's per-sample loops, Adam's 14 elementwise kernels a leaf),
-which the host takes longer to enqueue than the card takes to run them.
-`GraphedTrainStep` captures the step once per key and replays it, so a
+and a GAN batch more (the critic's passes and its gradient penalty's double
+backward), which the host takes longer to enqueue than the card takes to
+run. `GraphedTrainStep` captures the step once per key and replays it, so a
 steady batch costs the host a graph launch and a few writes; a replayed
 step is bitwise the eager one. The eager, capture and replay rule, the
 stream, the pool, the generators, the NaN checks, the failures, the
@@ -16,9 +17,11 @@ before a capture: a key's first call runs eagerly, its second is captured.
   and statistics and the optimizer's state, which it updates in place, and
   static tensors that the caller writes before each call, such as Adam's
   scalars (`ml.train.Adam.scalars`); the caller advances Adam's count.
-* **Keys** are the inputs' shapes and dtypes. A graph reads its inputs
-  from the clones the core made at its capture, into which each replay
-  copies first.
+* **Keys** are the inputs' shapes and dtypes and the call's `host` values,
+  the step's host decisions (the GAN's: whether the generator updates too),
+  which the body takes after its inputs: `body(*inputs, *host)`. A graph
+  reads its inputs from the clones the core made at its capture, into
+  which each replay copies first.
 * **Fresh outputs.** The graph stacks the body's outputs into one tensor,
   which each replay overwrites; the call returns views of a copy of it.
   The span `train.replay` holds a replay with its copies.
@@ -36,26 +39,26 @@ COUNTERS = counter_names("train")
 
 
 class GraphedTrainStep:
-    """`body(*inputs) -> {name: 0-dim tensor}` on CUDA inputs, eager the
-    first time a key occurs, replayed from a captured graph after (see the
-    module's docstring). Returns the body's outputs, fresh each call."""
+    """`body(*inputs, *host) -> {name: 0-dim tensor}` on CUDA inputs, eager
+    the first time a key occurs, replayed from a captured graph after (see
+    the module's docstring). Returns the body's outputs, fresh each call."""
 
     def __init__(self, body, generators=()):
         self.body = body
         self.graphs = StepGraphs("train", 1, generators)
 
-    def __call__(self, *inputs: torch.Tensor) -> dict:
+    def __call__(self, *inputs: torch.Tensor, host: tuple = ()) -> dict:
         graphs = self.graphs
         caller = graphs.enter(inputs[0].device)
-        key = tuple((t.shape, t.dtype) for t in inputs)
+        key = (tuple(host), tuple((t.shape, t.dtype) for t in inputs))
+
+        def stacked(*args):
+            out = self.body(*args, *host)
+            return list(out), torch.stack(list(out.values()))
         with torch.cuda.stream(graphs.stream):
-            names, out = graphs.run(key, self._stacked, inputs, _replay)
+            names, out = graphs.run(key, stacked, inputs, _replay)
         graphs.leave(caller)
         return dict(zip(names, out.unbind()))
-
-    def _stacked(self, *inputs):
-        out = self.body(*inputs)
-        return list(out), torch.stack(list(out.values()))
 
 
 def _replay(g, *inputs):

@@ -43,9 +43,12 @@ gradient penalty's double backward included: cuDNN's deterministic weight
 gradients of the 5x5 convs lose float32's precision). The draws the twin splits
 from its key (z1, z2, the penalty's eps and swap) come from a torch.Generator
 seeded with `key` (`gan_draws`), and the batch step takes them as an argument.
-After every epoch the flax tree `vars_G` is rewritten from the trained
-generator and `weights_generation` grows, so the offline evaluation and any
-graph run on the new weights. The best epoch by offline loss is kept in
+On CUDA data `GanTrainer.step` runs the batch (its rows, draws and step) as a
+CUDA graph per branch, critic-only or critic and generator
+(`ml/train_graph.py`), as `VaeTrainer.step` runs the VAE's. After every
+epoch the flax tree `vars_G` is rewritten from the trained generator and
+`weights_generation` grows, so the offline evaluation and any graph run on
+the new weights. The best epoch by offline loss is kept in
 `G_opt.msgpack`, every `retain_every`-th epoch in `epoch_bank/`, from which
 `select_stable_epoch` picks by short online rollouts.
 """
@@ -67,9 +70,10 @@ from ..ml.nets import AndrewCNN, DCGANDiscriminator, DeepInversionGenerator, \
 from ..ml.train import Adam, TrainCheckpointer, apply_in_batches, \
     epoch_permutation, log_to_dataset, mean_metrics, named_params, \
     piecewise_constant_schedule
+from ..ml.train_graph import COUNTERS, GraphedTrainStep
 from ..ml.weights import params_from_jax, params_to_jax, read_msgpack
 from ..utils import xrlite as xr
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .base import Parameterization, array_to_dataset, extract, \
     prepare_PV_data, register_model, save_model_args, save_variables
 from .common import bn_apply, draw_chunks, eval_in_batches, lev_from_nhwc, \
@@ -77,12 +81,16 @@ from .common import bn_apply, draw_chunks, eval_in_batches, lev_from_nhwc, \
     set_scalers, train_regression
 
 __all__ = ["CGANRegression", "evaluate_prediction", "loss_to_dataset",
-           "gan_draws", "gan_optimizers", "make_gan_batch_step",
+           "gan_draws", "gan_optimizers", "gradient_penalty",
+           "make_gan_batch_step", "GENERATOR_STEPS",
            "GenerativeTrainer", "GanTrainer", "SingleCheckpointer",
            "device_data", "run_epochs", "train_CGAN"]
 
 LAMBDA_DRIFT = 1e-3
 LAMBDA_GP = 10.0
+# the host counter of the training steps that updated the generator too
+GENERATOR_STEPS = "train.generator_steps"
+count(GENERATOR_STEPS, 0)
 
 
 @lru_cache(maxsize=4)
@@ -512,31 +520,55 @@ def gan_draws(generator: torch.Generator, x: torch.Tensor, n_latent: int):
     return z1, z2, eps, swap
 
 
+def gradient_penalty(D, x, ytrue_cat, yfake_cat, eps):
+    """The critic's gradient penalty LAMBDA_GP (|dD/dy| - 1)^2, the batch's
+    mean, at y = eps ytrue + (1 - eps) yfake: the input gradient is taken
+    with `create_graph=True`, so that the penalty's gradient in the critic's
+    weights is a double backward through its convolutions. Inside the span
+    `train.penalty`."""
+    with span("train.penalty"):
+        yinterp = (eps * ytrue_cat + (1 - eps) * yfake_cat
+                   ).requires_grad_(True)
+        dDdy, = torch.autograd.grad(D(torch.cat([x, yinterp], -1)).sum(),
+                                    yinterp, create_graph=True)
+        norms = torch.sqrt(
+            (dDdy.reshape(dDdy.shape[0], -1) ** 2).sum(-1) + 1e-12)
+        return LAMBDA_GP * ((norms - 1.0) ** 2).mean()
+
+
 def make_gan_batch_step(net: CGANRegression, txG: Adam, txD: Adam):
     """One full GAN training step (twin :476-572) on the modules net.G and
-    net.D in place: batch_step(opt, batch, i, draws, grads=None) -> metrics.
+    net.D in place: batch_step(opt, batch, gen_step, draws, scalars=None,
+    grads=None) -> metrics.
 
     opt = {"G": G's optimizer state, "D": D's}; batch = (x, y, ymean) NHWC;
-    i = the batch's index in its epoch; draws = (z1, z2, eps, swap)
-    (`gan_draws`). G runs in train mode twice before the critic update and,
-    on a G step (i % 5 == 0), twice more inside it, so its BatchNorm
-    statistics move 2 or 4 times a batch, in the twin's order. The critic
-    runs in eval mode; its loss is -0.5 (D(x,y,ŷ2) + D(x,ŷ1,y)) + D(x,ŷ1,ŷ2)
-    plus the drift LAMBDA_DRIFT D(x,y,ŷ2)^2 and the gradient penalty
-    LAMBDA_GP (|dD/dy| - 1)^2 at eps true + (1-eps) fake, the true pair
+    gen_step, a host decision: whether the generator updates too (the
+    twin's i % 5 == 0, i the batch's index in its epoch); draws = (z1, z2,
+    eps, swap) (`gan_draws`). With scalars = {"D": ..., "G": ...}, each
+    optimizer's `Adam.scalars` as written for its count, the step reads no
+    host value and leaves both counts to the caller (the form that
+    `GanTrainer` captures, a CUDA graph a branch); without, each optimizer
+    writes its own and advances its count. G runs in train mode twice
+    before the critic update and, on a G step, twice more inside it, so its
+    BatchNorm statistics move 2 or 4 times a batch, in the twin's order.
+    The critic runs in eval mode; its loss is -0.5 (D(x,y,ŷ2) + D(x,ŷ1,y))
+    + D(x,ŷ1,ŷ2) plus the drift LAMBDA_DRIFT D(x,y,ŷ2)^2 and the gradient
+    penalty (`gradient_penalty`) at eps true + (1-eps) fake, the true pair
     (ŷ1, y) where swap, else (y, ŷ2). The generator's update reads the
     updated critic; its loss is logged in float32, as the twin logs it.
-    With `grads` (a dict), the critic's and generator's
-    gradients are left in grads["D"] and grads["G"] by parameter name."""
+    With `grads` (a dict), the critic's and generator's gradients are left
+    in grads["D"] and grads["G"] by parameter name."""
     G, D = net.G, net.D
     pG, pD = named_params(G), named_params(D)
 
     def g_forward(x, z):
         return bn_apply(G, torch.cat([x, z], dim=-1), True)
 
-    def batch_step(opt, batch, i, draws, grads=None):
+    def batch_step(opt, batch, gen_step, draws, scalars=None, grads=None):
         x, y, ymean = batch
         z1, z2, eps, swap = draws
+        # Adam's scalars, where given, as each optimizer's last argument
+        given = {k: () if scalars is None else (scalars[k],) for k in "DG"}
         if net.regression == "residual_loss":
             y = y - ymean
         D.eval()
@@ -558,20 +590,13 @@ def make_gan_batch_step(net: CGANRegression, txG: Adam, txD: Adam):
                 ytrue_cat = torch.where(swap, torch.cat([yf1, y], -1),
                                         torch.cat([y, yf2], -1))
                 yfake_cat = torch.cat([yf1, yf2], -1)
-                yinterp = (eps * ytrue_cat + (1 - eps) * yfake_cat
-                           ).requires_grad_(True)
-                dDdy, = torch.autograd.grad(
-                    D(torch.cat([x, yinterp], -1)).sum(), yinterp,
-                    create_graph=True)
-                norms = torch.sqrt(
-                    (dDdy.reshape(dDdy.shape[0], -1) ** 2).sum(-1) + 1e-12)
-                D_grad = LAMBDA_GP * ((norms - 1.0) ** 2).mean()
+                D_grad = gradient_penalty(D, x, ytrue_cat, yfake_cat, eps)
                 gD = torch.autograd.grad(D_loss + D_grad + D_drift,
                                          list(pD.values()))
-                txD.step(pD, gD, opt["D"])
+                txD.step(pD, gD, opt["D"], *given["D"])
 
             # ---------------- generator update (every 5th batch) ----------
-            if i % 5 == 0:
+            if gen_step:
                 with span("train.generator"):
                     yg1 = g_forward(x, z1)
                     yg2 = g_forward(x, z2)
@@ -580,7 +605,7 @@ def make_gan_batch_step(net: CGANRegression, txG: Adam, txD: Adam):
                         yg2 = yg2 + ymean
                     G_loss = -D(torch.cat([x, yg1, yg2], -1)).mean()
                     gG = torch.autograd.grad(G_loss, list(pG.values()))
-                    txG.step(pG, gG, opt["G"])
+                    txG.step(pG, gG, opt["G"], *given["G"])
                     G_loss = G_loss.detach().to(torch.float32)
             else:
                 gG = None
@@ -688,7 +713,15 @@ class GanTrainer(GenerativeTrainer):
     """The GAN's replica (twin :575-713): Adam on `gan_optimizers`'
     schedule, fresh weights for G and then D where the model has none, one
     `make_gan_batch_step` a batch on the device-resident `data` (X, Y, the
-    mean net's Y), with `gan_draws` from the replica's generator."""
+    mean net's Y), its draws (`gan_draws`) from the replica's generator. A
+    step writes the critic's Adam scalars and, on a generator batch (i % 5
+    == 0), the generator's, runs `body` (the rows' gather, the draws and
+    the batch step) through `GraphedTrainStep` on CUDA data, keyed by the
+    branch, or eagerly, counting `train.eager_steps`, on the CPU; then it
+    advances the critic's count and, on a generator batch, the generator's,
+    counting `train.generator_steps`. The parameters, BatchNorm statistics
+    and both Adams' moments are never replaced (`load` copies into them),
+    since a graph holds their addresses."""
 
     best_file = "G_opt.msgpack"
 
@@ -696,25 +729,49 @@ class GanTrainer(GenerativeTrainer):
                  batch_size: int, learning_rate: float, key: int = 0):
         super().__init__(net, key, len(data[0]), batch_size)
         steps = int(np.ceil(self.n / batch_size))
-        txG, txD = gan_optimizers(learning_rate, num_epochs, steps)
+        self.txG, self.txD = gan_optimizers(learning_rate, num_epochs, steps)
         if net.vars_G is None:
             init_weights(net.G, self.generator)
             net._generator_changed()
         if net.vars_D is None:
             init_weights(net.D, self.generator)
-        self.opt = {"G": txG.init(named_params(net.G)),
-                    "D": txD.init(named_params(net.D))}
-        self.data = data
-        self.batch_step = make_gan_batch_step(net, txG, txD)
+        self.opt = {"G": self.txG.init(named_params(net.G)),
+                    "D": self.txD.init(named_params(net.D))}
+        # Adam's scalars are kept for the parameters' device and dtype
+        self._like = next(net.D.parameters())
         self.best_template = params_to_jax(net.G.state_dict())
+        # the body holds the trainer's parts and not the trainer, so that
+        # dropping the trainer frees its graphs and pool at once
+        txG, txD, opt = self.txG, self.txD, self.opt
+        batch_step = make_gan_batch_step(net, txG, txD)
+        generator, like, n_latent = self.generator, self._like, net.n_latent
+
+        def body(idx, gen_step):
+            with span("train.batch"):  # the rows idx of X, Y, ymean
+                batch = tuple(t[idx] for t in data)
+                draws = gan_draws(generator, batch[0], n_latent)
+            return batch_step(opt, batch, gen_step, draws,
+                              {"D": txD.scalars(like), "G": txG.scalars(like)})
+        self.body = body
+        self.graphed = GraphedTrainStep(body, (generator,)) \
+            if data[0].is_cuda else None
 
     def step(self, i: int, idx: torch.Tensor) -> dict:
+        gen_step = i % 5 == 0
         with span("train.step"):
-            Xd, Yd, Md = self.data
-            x = Xd[idx]
-            return self.batch_step(self.opt, (x, Yd[idx], Md[idx]), i,
-                                   gan_draws(self.generator, x,
-                                             self.net.n_latent))
+            self.txD.scalars(self._like, self.opt["D"]["count"])
+            if gen_step:
+                self.txG.scalars(self._like, self.opt["G"]["count"])
+            if self.graphed is None:
+                count(COUNTERS["eager_steps"])
+                metrics = self.body(idx, gen_step)
+            else:
+                metrics = self.graphed(idx, host=(gen_step,))
+            self.opt["D"]["count"] += 1
+            if gen_step:
+                self.opt["G"]["count"] += 1
+                count(GENERATOR_STEPS)
+            return metrics
 
     def trained(self) -> None:
         self.net._generator_changed()
@@ -728,9 +785,17 @@ class GanTrainer(GenerativeTrainer):
                 "optG": self.opt["G"], "optD": self.opt["D"]}
 
     def load(self, saved: dict) -> None:
+        """The saved modules and both Adams' states, copied into the
+        trainer's own tensors."""
         self.net.G.load_state_dict(saved["G"])
         self.net.D.load_state_dict(saved["D"])
-        self.opt = {"G": saved["optG"], "D": saved["optD"]}
+        with torch.no_grad():
+            for net in ("G", "D"):
+                state, kept = self.opt[net], saved[f"opt{net}"]
+                for part in ("mu", "nu"):
+                    for name, t in state[part].items():
+                        t.copy_(kept[part][name])
+                state["count"] = int(kept["count"])
 
     def describe(self, row: dict) -> str:
         return (f"D_loss: {row['D_loss']:.3f} G_loss: {row['G_loss']:.3f}"

@@ -167,7 +167,7 @@ def gan_step(mesh, device, dtype=torch.float64, seed: int = 0) -> dict:
            "D": txD.init(named_params(ref.D))}
     grads = {}
     m_ref = make_gan_batch_step(ref, txG, txD)(
-        opt, (x, y, ym), 0, (z1, z2, eps, swap), grads)
+        opt, (x, y, ym), True, (z1, z2, eps, swap), grads=grads)
 
     model = gan()
     for net in (model.G, model.D):
@@ -179,7 +179,7 @@ def gan_step(mesh, device, dtype=torch.float64, seed: int = 0) -> dict:
            "D": txD.init(named_params(model.D))}
     lo, hi = batch_sharding(mesh, "dp").rows(batch)
     m = make_gan_batch_step(model, txG, txD)(
-        opt, (x[lo:hi], y[lo:hi], ym[lo:hi]), 0,
+        opt, (x[lo:hi], y[lo:hi], ym[lo:hi]), True,
         (z1[lo:hi], z2[lo:hi], eps[lo:hi], swap))
 
     names = sorted(m)

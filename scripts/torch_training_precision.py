@@ -316,8 +316,8 @@ def step_grads(make, dev, dtype, arrays, enabled=False):
            "D": txD.init(named_params(m.D))}
     grads = {}
     with step_cudnn(enabled):
-        gan.make_gan_batch_step(m, txG, txD)(opt, tuple(t[:3]), 0,
-                                             tuple(t[3:]), grads)
+        gan.make_gan_batch_step(m, txG, txD)(opt, tuple(t[:3]), True,
+                                             tuple(t[3:]), grads=grads)
     return {f"{k}.{n}": v for k in ("D", "G") for n, v in grads[k].items()}
 
 
@@ -354,11 +354,11 @@ def timing(smi):
     for enabled in (True, False, True):
         with step_cudnn(enabled):
             for j in range(5):
-                step(opt, batch, j, gan.gan_draws(g, x, 2))
+                step(opt, batch, j == 0, gan.gan_draws(g, x, 2))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for j in range(10):
-                step(opt, batch, j % 5, gan.gan_draws(g, x, 2))
+                step(opt, batch, j % 5 == 0, gan.gan_draws(g, x, 2))
             torch.cuda.synchronize()
         print(f"GAN batch step at 64 x 64^2, "
               f"{'cudnn on' if enabled else 'exact_fp32_training'}: "

@@ -965,7 +965,7 @@ def test_gan_batch_step_on_card_matches_cpu():
         grads = {}
         before = fused_conv.launches
         metrics = gan.make_gan_batch_step(m, txG, txD)(
-            opt, tuple(t[:3]), 0, tuple(t[3:]), grads)
+            opt, tuple(t[:3]), True, tuple(t[3:]), grads=grads)
         assert fused_conv.launches == before
         out[dev] = metrics, grads
     (mc, gc), (mr, gr) = out["cuda"], out["cpu"]

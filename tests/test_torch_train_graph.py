@@ -217,6 +217,10 @@ CORE = {
     "warm-up 1": (1, "a:E a:C a:R b:E b:C b:R"),
     "debug_nans forces eager": (1, "a:E !a:E a:C !a:E a:R"),
     "reset": (1, "a:E a:C reset a:E a:C a:R"),
+    # the GAN's 11 checked steps, keyed by the branch (g: the generator
+    # updates too, i % 5 == 0; c: the critic alone)
+    "a GAN period, the branch in the key": (
+        1, "g:E c:E c:C c:R c:R g:C c:R c:R c:R c:R g:R"),
 }
 
 
